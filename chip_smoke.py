@@ -4,10 +4,12 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases (any failure exits non-zero; no phase's failure is caught):
 
-1. environment card: torch / CUDA / nvcc versions, the card's name and
-   power limit;
-2. build: the kernel (partisan_tpu_torch/csrc/interleave.cu) with nvcc
-   into build/partisan_tpu_torch/;
+1. environment card: torch / CUDA / nvcc / Triton versions, the card's
+   name and power limit;
+2. build: the CUDA kernel (partisan_tpu_torch/csrc/interleave.cu) with
+   nvcc into build/partisan_tpu_torch/, and the Triton kernel
+   (partisan_tpu_torch/csrc/minimal_triton.py) into
+   build/partisan_tpu_torch/triton/;
 3. kernel check: the kernel against its plain PyTorch version, bit for
    bit, at the main path's shape (and a ragged shape), with its time,
    the plain version's time, the time of one library call computing the
@@ -22,7 +24,25 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    from node 0 slot 0 stepped to coverage 1.0, steady rounds/s, then
    record(10).  Kernel launch counts are reset just before and read
    just after; every kernel of the path must have launched;
-6. the kernels line, the card line, and last the result line
+6. the probe path (partisan_tpu_torch.probe: the minimal kernel at
+   [256, 256], the interleave on int32 planes at n=8192 and 32768),
+   counts reset just before and read just after; then the minimal
+   kernel against its plain version and torch.mul, bit for bit, at
+   [256, 256] and a ragged [1000, 37], with its times and bound;
+7. Filibuster parity, small: the three checker setups of
+   tests/test_filibuster.py (N=6 full mesh, direct mail unacked and
+   acked, max_faults 1 and 2) on the card and on the CPU — every Result
+   field identical — and the bench configuration at n=512 under a
+   fixed OmissionSchedule, record(5): trace and every state leaf
+   identical;
+8. the Filibuster path at full width: the bench configuration at
+   n=32768 booted by phase 5's ladder, the broadcast from node 0
+   queued, a checker over node 0's PT_GOSSIP sends in the broadcast
+   round (horizon 24, sched_width 80, max_faults 1, max_executions 4,
+   assertion coverage 1.0); counts reset just before and read just
+   after, and the interleave must have launched horizon times per
+   record call;
+9. the kernels line, the card line, and last the result line
    {"ok": true, "device": {...}}.
 """
 
@@ -40,6 +60,11 @@ import torch
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
 N_MAIN = 32768
 N_PARITY = 512
+FB_N = 6                    # tests/test_filibuster.py's checker setups
+FB_HORIZON = 12
+FULL_HORIZON = 24           # the full-width Filibuster phase
+FULL_SCHED_WIDTH = 80       # >= the bench path's 77-slot emission width
+FULL_MAX_EXECUTIONS = 4
 
 
 def log(obj) -> None:
@@ -117,6 +142,32 @@ def kernel_check(shape, dtypes, seed: int) -> dict:
     }
 
 
+def minimal_check(shape, seed: int) -> dict:
+    """The Triton minimal kernel against its plain version and torch.mul
+    on random int32 inputs (``x * 2`` wraps the same way in all three)."""
+    from partisan_tpu_torch import kernels, probe
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randint(-2 ** 31, 2 ** 31, shape, generator=gen,
+                      device="cuda", dtype=torch.int64).to(torch.int32)
+    before = kernels.launches["minimal"]
+    got = probe.minimal(x)
+    torch.cuda.synchronize()
+    if kernels.launches["minimal"] != before + 1:
+        raise AssertionError("minimal wrapper did not launch its kernel")
+    want = probe.minimal_plain(x)
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    if not torch.equal(got, want) or not torch.equal(torch.mul(x, 2), got):
+        raise AssertionError(f"minimal kernel disagrees at {shape}: max abs "
+                             f"err {err}")
+    nbytes = 2 * x.numel() * 4
+    return {"shape": list(shape), "max_abs_err": err,
+            "ms": time_ms(lambda: probe.minimal(x), reps=200),
+            "plain_ms": time_ms(lambda: probe.minimal_plain(x), reps=200),
+            "library_ms": time_ms(lambda: torch.mul(x, 2), reps=200),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes}
+
+
 def state_leaves(tree):
     from partisan_tpu_torch import state_io
 
@@ -145,29 +196,184 @@ def drive_small(device: str):
     return run["boot_state"], st, tr, run["converged_round"]
 
 
+def fb_setups(device: str) -> list:
+    """tests/test_filibuster.py's three checker setups on ``device``:
+    N=6 full mesh, every node joined via node 0 and 15 rounds settled,
+    a direct-mail broadcast from node 0 queued."""
+    from partisan_tpu_torch import filibuster
+    from partisan_tpu_torch.cluster import Cluster
+    from partisan_tpu_torch.config import Config
+    from partisan_tpu_torch.models.direct_mail import DirectMail
+
+    results = []
+    for acked, max_faults, max_exec in ((False, 1, 200), (True, 1, 200),
+                                        (False, 2, 30)):
+        model = DirectMail(acked=acked)
+
+        def build(interp, model=model, acked=acked):
+            cfg = Config(n_nodes=FB_N, seed=17, inbox_cap=max(32, FB_N + 8),
+                         ack_cap=8 if acked else 0)
+            cl = Cluster(cfg, model=model, interpose=interp, device=device)
+            st = cl.init()
+            m = st.manager
+            for i in range(1, FB_N):
+                m = cl.manager.join(cfg, m, i, 0)
+            st = cl.steps(st._replace(manager=m), 15)
+            return cl, st._replace(model=model.broadcast(st.model, 0, 0))
+
+        def covered(cl, st, model=model):
+            return float(model.coverage(st.model, st.faults.alive, 0)) == 1.0
+
+        results.append(filibuster.Checker(
+            build=build, horizon=FB_HORIZON, assertion=covered,
+            candidate=filibuster.app_messages, max_faults=max_faults,
+            max_executions=max_exec).run())
+    return results
+
+
+def result_fields(res) -> dict:
+    return {"passed": res.passed, "executions": res.executions,
+            "pruned": res.pruned, "candidates": res.candidates,
+            "counterexample": None if res.counterexample is None
+            else sorted(res.counterexample.schedule),
+            "render": res.render()}
+
+
+def omission_record(device: str, boot_state):
+    """The bench configuration at n=512 under a fixed OmissionSchedule
+    (5% of the slots of five rounds, from a seeded numpy draw): a
+    broadcast from node 7, then record(5)."""
+    from partisan_tpu_torch import interpose, scenarios as sc
+    from partisan_tpu_torch.cluster import Cluster
+    from partisan_tpu_torch.models.plumtree import Plumtree
+
+    start = int(boot_state.rnd)
+    drops = np.random.default_rng(5).random((5, N_PARITY, 77)) < 0.05
+    sched = interpose.OmissionSchedule(drops, start=start)
+    model = Plumtree()
+    cl = Cluster(sc.bench_config(N_PARITY), model=model, interpose=sched,
+                 device=device)
+    st = boot_state._replace(interpose=sched.init(cl.cfg, cl.comm),
+                             model=model.broadcast(boot_state.model, 7, 0,
+                                                   start))
+    return cl.record(st, 5)
+
+
+def filibuster_full(boot_state) -> dict:
+    """The Filibuster path (phase 8) on the booted state's device and
+    width."""
+    from partisan_tpu_torch import cluster as cluster_mod, filibuster
+    from partisan_tpu_torch import kernels, scenarios as sc
+    from partisan_tpu_torch.models.plumtree import Plumtree
+    from partisan_tpu_torch.types import MsgKind
+
+    dev = boot_state.rnd.device
+    n = boot_state.faults.alive.shape[0]
+    start = int(boot_state.rnd)
+    model = Plumtree()
+    timing = {"records": 0, "record_s": 0.0, "copy_s": 0.0}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    class TimedCluster(cluster_mod.Cluster):
+        """Counts record calls and times the device rounds (ending in a
+        synchronize) apart from the trace's copy to the host."""
+
+        def record(self, state, k):
+            t0 = time.perf_counter()
+            st, tr = super().record(state, k)
+            sync()
+            t1 = time.perf_counter()
+            tr = tr._replace(sent=tr.sent.cpu(), dropped=tr.dropped.cpu(),
+                             rnd=tr.rnd.cpu())
+            timing["records"] += 1
+            timing["record_s"] += t1 - t0
+            timing["copy_s"] += time.perf_counter() - t1
+            return st, tr
+
+    def build(interp):
+        cl = TimedCluster(sc.bench_config(n), model=model, interpose=interp,
+                          device=dev)
+        return cl, boot_state._replace(
+            model=model.broadcast(boot_state.model, 0, 0, start))
+
+    def covered(cl, st):
+        return float(model.coverage(st.model, st.faults.alive, 0)) == 1.0
+
+    def gossip_of_root(ev):
+        return ev.kind == MsgKind.PT_GOSSIP and ev.src == 0 \
+            and ev.rnd == start
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = filibuster.Checker(
+        build=build, horizon=FULL_HORIZON, assertion=covered,
+        candidate=gossip_of_root, max_faults=1,
+        max_executions=FULL_MAX_EXECUTIONS,
+        sched_width=FULL_SCHED_WIDTH).run()
+    wall = time.perf_counter() - t0
+    counts = dict(kernels.launches)
+    if not res.passed and not res.counterexample.schedule:
+        raise AssertionError(f"n={n} Filibuster: the base execution (no "
+                             "omission) failed the coverage assertion")
+    want = FULL_HORIZON * timing["records"] if dev.type == "cuda" else 0
+    if counts["interleave"] != want:
+        raise AssertionError(
+            f"n={n} Filibuster: {counts['interleave']} interleave "
+            f"launches, want {FULL_HORIZON} x {timing['records']} records")
+    return {"n": n, "broadcast_round": start, "horizon": FULL_HORIZON,
+            "verdict": res.render().splitlines()[0], "passed": res.passed,
+            "executions": res.executions, "pruned": res.pruned,
+            "candidates": res.candidates,
+            "record_calls": timing["records"], "launches": counts,
+            "wall_s": wall, "device_rounds_s": timing["record_s"],
+            "trace_copy_s": timing["copy_s"],
+            "host_decode_s": wall - timing["record_s"] - timing["copy_s"],
+            "trace_gb_per_execution": FULL_HORIZON * n * 77 * 16 * 4 / 1e9,
+            "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            if dev.type == "cuda" else None}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false)", file=sys.stderr)
         return 2
-    from partisan_tpu_torch import kernels
+    from partisan_tpu_torch import kernels, probe
     from partisan_tpu_torch import scenarios as sc
+    from partisan_tpu_torch.ops import plane as plane_ops
 
     t_all = time.perf_counter()
     card = smi_line()
     kind = torch.cuda.get_device_name(0)
 
     # 1. environment card
+    from importlib import metadata
+
     log({"phase": "env", "python": sys.version.split()[0],
          "torch": torch.__version__, "cuda": torch.version.cuda,
-         "nvcc": nvcc_version(), "device": kind,
-         "count": torch.cuda.device_count(), "card": card})
+         "nvcc": nvcc_version(), "triton": metadata.version("triton"),
+         "device": kind, "count": torch.cuda.device_count(), "card": card})
 
-    # 2. build the kernel
+    # 2. build the kernels: nvcc, then Triton's compile at a first
+    #    launch of the raw kernel (not the wrapper: it counts nothing)
     t0 = time.perf_counter()
     compiled = kernels.build()
     log({"phase": "build", "source": str(kernels.source()),
          "compiled": compiled, "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    scratch = torch.zeros(1, dtype=torch.int32, device="cuda")
+    kernels.minimal_fn()[(1,)](scratch, scratch, 1,
+                               BLOCK=probe.MINIMAL_BLOCK)
+    torch.cuda.synchronize()
+    log({"phase": "build", "source":
+         "partisan_tpu_torch/csrc/minimal_triton.py",
+         "cache": str(kernels.TRITON_CACHE),
+         "seconds": time.perf_counter() - t0})
 
     # 3. kernel checks against the plain version
     bench_dtypes = list(sc.bench_config(8).wire_dtypes)
@@ -191,7 +397,7 @@ def main() -> int:
     log({"phase": "parity", "n": N_PARITY, "leaves": n_leaves,
          "converged_round": g_conv, "trace_shape": list(g_tr.sent.shape),
          "seconds": time.perf_counter() - t0})
-    del g_boot, g_st, g_tr, c_boot, c_st, c_tr
+    del g_st, g_tr, c_st, c_tr
 
     # 5. the main path at n=32768, kernel counts reset just before
     kernels.reset_launches()
@@ -212,7 +418,7 @@ def main() -> int:
         raise AssertionError(f"trace shape {tuple(tr.sent.shape)} != {want}")
     if not bool((tr.sent[..., 0] != 0).any()):
         raise AssertionError("record(10) captured no emission")
-    missing = [k for k, v in counts.items() if v == 0]
+    missing = [k for k in ("interleave",) if counts[k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{missing}")
@@ -227,20 +433,90 @@ def main() -> int:
                    "dropped": int(st.stats.dropped)},
          "launches": counts, "peak_mem_gib":
          torch.cuda.max_memory_allocated() / 2 ** 30})
-    del tr, st2
+    del tr, st2, st
+    boot_main = run["boot_state"]
+    del run
 
-    # 6. kernels line, card line, result line
+    # 6. the probe path, counts reset just before and read just after
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    probes = [probe.probe_minimal()] + [probe.probe_interleave(n)
+                                        for n in (8192, N_MAIN)]
+    probe_counts = dict(kernels.launches)
+    if not all(r["ok"] for r in probes):
+        raise AssertionError(f"probe failed: {probes}")
+    if probe_counts != {"interleave": 2, "minimal": 1}:
+        raise AssertionError(f"probe path launches {probe_counts}, want "
+                             "one minimal and two interleave")
+    for n in (8192, N_MAIN):
+        planes = torch.arange(probe.W * n * probe.S, dtype=torch.int32,
+                              device="cuda").reshape(probe.W, n, probe.S)
+        ws = list(planes.unbind(0))
+        log({"phase": "probe_interleave", "n": n, "card": card,
+             "ms": time_ms(lambda: plane_ops.interleave(
+                 plane_ops.Planes(ws))),
+             "plain_ms": time_ms(lambda: plane_ops.interleave_plain(ws)),
+             "library_ms": time_ms(lambda: planes.permute(1, 2, 0)
+                                   .contiguous()),
+             "bound_ms": 2 * planes.numel() * 4 / HBM_BYTES_PER_S * 1e3})
+    min_main = minimal_check((256, 256), seed=3)
+    min_ragged = minimal_check((1000, 37), seed=4)
+    log({"phase": "probe", "card": card, "probes": probes,
+         "launches": probe_counts, "minimal": [min_main, min_ragged],
+         "seconds": time.perf_counter() - t0})
+
+    # 7. Filibuster parity, small: the card against the CPU
+    t0 = time.perf_counter()
+    g_res = [result_fields(r) for r in fb_setups("cuda")]
+    c_res = [result_fields(r) for r in fb_setups("cpu")]
+    if g_res != c_res:
+        raise AssertionError(f"Filibuster results differ: card {g_res}, "
+                             f"CPU {c_res}")
+    g_st, g_tr = omission_record("cuda", g_boot)
+    c_st, c_tr = omission_record("cpu", c_boot)
+    n_leaves = assert_identical(g_st, c_st, "n=512 omission record state")
+    assert_identical(g_tr, c_tr, "n=512 omission record trace")
+    log({"phase": "filibuster_parity", "results": [
+        {k: v for k, v in r.items() if k != "render"} for r in g_res],
+        "omission_record": {
+            "n": N_PARITY, "leaves": n_leaves,
+            "sent_records": int((g_tr.sent[..., 0] != 0).sum())},
+        "seconds": time.perf_counter() - t0})
+    del g_boot, c_boot, g_st, c_st, g_tr, c_tr
+
+    # 8. the Filibuster path at n=32768
+    fb = filibuster_full(boot_main)
+    log({"phase": "filibuster_full", "card": card, **fb})
+    del boot_main
+
+    # 9. kernels line, card line, result line
     log({"kernels": [{
         "name": "interleave", "route": "cuda",
         "source": "partisan_tpu_torch/csrc/interleave.cu",
         "replaces": "tools/pallas_probe.py:54",
-        "launches": counts["interleave"],
+        "launches": counts["interleave"] + probe_counts["interleave"]
+        + fb["launches"]["interleave"],
+        "launches_by_path": {"bench_record": counts["interleave"],
+                             "probe": probe_counts["interleave"],
+                             "filibuster": fb["launches"]["interleave"]},
         "matches_plain": main_check["max_abs_err"] == 0
         and ragged["max_abs_err"] == 0,
         "max_abs_err": main_check["max_abs_err"],
         "ms": main_check["ms"], "plain_ms": main_check["plain_ms"],
         "bound_ms": main_check["bound_ms"], "bound_by": "bytes",
         "library_ms": main_check["library_ms"],
+    }, {
+        "name": "minimal", "route": "triton",
+        "source": "partisan_tpu_torch/csrc/minimal_triton.py",
+        "replaces": "tools/pallas_probe.py:59",
+        "launches": probe_counts["minimal"],
+        "launches_by_path": {"probe": probe_counts["minimal"]},
+        "matches_plain": min_main["max_abs_err"] == 0
+        and min_ragged["max_abs_err"] == 0,
+        "max_abs_err": min_main["max_abs_err"],
+        "ms": min_main["ms"], "plain_ms": min_main["plain_ms"],
+        "bound_ms": min_main["bound_ms"], "bound_by": "bytes",
+        "library_ms": min_main["library_ms"],
     }]})
     print(f"chip_smoke wall {time.perf_counter() - t_all:.1f}s",
           file=sys.stderr)

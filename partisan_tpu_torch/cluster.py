@@ -3,17 +3,21 @@
 
 One round advances the whole cluster ``round_ms`` of virtual time:
 per-node round keys, the manager transition, the model transition, the
-wire stage (monotonic shed, fault masks) and the exchange into next
-round's inboxes, then the stats.  Two wire arms are ported:
+delivery layer's send path (the ack lane), the wire stage and the
+exchange into next round's inboxes, then the stats.  The wire stage has
+the reference's two arms:
 
-- the FAST arm (``Cluster.step``/``steps``): compaction first, one
-  packed destination-facts gather, the hash-Bernoulli edge cut, route;
-- the CAPTURE arm (``Cluster.record``): shed, emitted count, the fault
-  filter, THE plane->wire interleave (the hand-written CUDA kernel on
-  the card) for the trace, compaction and route.
+- the FAST arm (``step``/``steps`` with no interposition and groups
+  partitions): compaction first, one packed destination-facts gather,
+  the hash-Bernoulli edge cut, route;
+- the GENERIC arm (``record``, or any interposition, or dense
+  partitions): monotonic shed, the interposition chain, the emitted
+  count, the fault filter, THE plane->wire interleave (the hand-written
+  CUDA kernel on the card) only when capturing the trace, then
+  compaction and route.
 
 ``ClusterState`` keeps the reference's field order and leaf dtypes, with
-``()`` for every plane this slice does not port.  The reference's
+``()`` for every plane the port does not carry.  The reference's
 ``lax.cond`` quiet gates are host-evaluated flags here (a later slice
 moves them on the device and captures ``steps(k)`` as a CUDA graph).
 """
@@ -25,8 +29,10 @@ from typing import Any, NamedTuple
 
 import torch
 
+from partisan_tpu_torch import delivery as delivery_mod
 from partisan_tpu_torch import device as device_mod
 from partisan_tpu_torch import faults as faults_mod
+from partisan_tpu_torch import interpose as interpose_mod
 from partisan_tpu_torch import managers as managers_mod
 from partisan_tpu_torch.comm import LocalComm
 from partisan_tpu_torch.config import Config
@@ -80,10 +86,11 @@ def _count(x: torch.Tensor) -> torch.Tensor:
 
 
 def round_body(cfg: Config, manager: Any, model: Any, comm: LocalComm,
-               state: ClusterState, capture: bool = False, sent_out=None):
-    """ONE round; ``capture`` selects the capture arm and also returns the
-    round's ``TraceRound``.  ``sent_out(shape)``, when given, returns the
-    int32 tensor the trace's ``sent`` is written into."""
+               state: ClusterState, interpose: Any = None,
+               capture: bool = False, sent_out=None):
+    """ONE round; ``capture`` also returns the round's ``TraceRound``.
+    ``sent_out(shape)``, when given, returns the int32 tensor the trace's
+    ``sent`` is written into."""
     seed = cfg.seed
     n = cfg.n_nodes
     n_act = state.n_active
@@ -108,10 +115,18 @@ def round_body(cfg: Config, manager: Any, model: Any, comm: LocalComm,
         dstate_model = ()
         emitted = plane_ops.concat(plane_ops.blocks_of(m_emit), dim=1)
 
+    dstate = state.delivery
+    if delivery_mod.enabled(cfg):
+        dstate, emitted = delivery_mod.outbound(cfg, comm, dstate,
+                                                emitted, ctx)
+
     want_shed = cfg.monotonic_shed and any(c.monotonic for c in cfg.channels)
     dev = gids.device
     trace = None
-    if not capture:
+    istate = state.interpose
+    fast = (interpose is None and cfg.resolved_partition_mode == "groups"
+            and not capture)
+    if fast:
         # FAST arm: compaction first, then ONE packed destination-facts
         # gather, the edge cut and the route; skipped when nothing was
         # emitted anywhere (the quiet-round path).
@@ -146,8 +161,9 @@ def round_body(cfg: Config, manager: Any, model: Any, comm: LocalComm,
                                          device=dev)
         n_emitted = n_raw - shed_n
     else:
-        # CAPTURE arm: monotonic shed, emitted count, the fault filter,
-        # the interleaved trace, then compaction + route.
+        # GENERIC arm: monotonic shed, interposition, emitted count, the
+        # fault filter, the interleaved trace when capturing, then
+        # compaction + route.
         if want_shed:
             mono = torch.tensor([c.monotonic for c in cfg.channels],
                                 dtype=torch.bool, device=dev)
@@ -158,16 +174,19 @@ def round_body(cfg: Config, manager: Any, model: Any, comm: LocalComm,
                 & (emitted[W_KIND] != 0)
             emitted = plane_ops.set_word(
                 emitted, W_KIND, torch.where(shed, 0, emitted[W_KIND]))
+        if interpose is not None:
+            istate, emitted = interpose.apply(cfg, comm, istate, emitted,
+                                              ctx)
         n_emitted = _count(emitted[W_KIND] != 0)
         sent = emitted
         emitted = faults_mod.filter_msgs(faults_wire, emitted, seed,
                                          state.rnd, _MSG_FILTER_TAG)
-        fault_dropped = (sent[W_KIND] != 0) & (emitted[W_KIND] == 0)
-        sent_buf = None if sent_out is None \
-            else sent_out(tuple(sent[0].shape) + (len(sent),))
-        trace = TraceRound(rnd=state.rnd,
-                           sent=plane_ops.interleave(sent, out=sent_buf),
-                           dropped=fault_dropped)
+        if capture:
+            sent_buf = None if sent_out is None \
+                else sent_out(tuple(sent[0].shape) + (len(sent),))
+            trace = TraceRound(
+                rnd=state.rnd, sent=plane_ops.interleave(sent, out=sent_buf),
+                dropped=(sent[W_KIND] != 0) & (emitted[W_KIND] == 0))
         if bool((emitted[W_KIND] != 0).any()):
             e = exchange.compact_emissions(emitted, cfg.emit_compact) \
                 if cfg.emit_compact else emitted
@@ -180,7 +199,7 @@ def round_body(cfg: Config, manager: Any, model: Any, comm: LocalComm,
     # (the wire cut already severed every edge to a dead row).
     dead = ~alive_local
     inbox = exchange.Inbox(
-        data=inbox.data if not capture
+        data=inbox.data if fast
         else plane_ops.where(dead[:, None], 0, inbox.data),
         count=torch.where(dead, 0, inbox.count),
         drops=inbox.drops + torch.where(dead, inbox.count, 0))
@@ -191,7 +210,7 @@ def round_body(cfg: Config, manager: Any, model: Any, comm: LocalComm,
         dropped=state.stats.dropped + (n_emitted - ev_delivered))
     out = ClusterState(rnd=state.rnd + 1, faults=state.faults, inbox=inbox,
                        manager=mstate, model=dstate_model,
-                       delivery=state.delivery, stats=stats,
+                       delivery=dstate, stats=stats, interpose=istate,
                        n_active=n_act)
     if capture:
         return out, trace
@@ -234,17 +253,23 @@ def run_until(cluster: Any, state: ClusterState, pred, max_rounds: int,
 @dataclasses.dataclass
 class Cluster:
     """Runs the round step for one configuration on one device
-    (``device=None`` means the card)."""
+    (``device=None`` means the card).  ``interpose`` is an interposition
+    (or a ``Chain``); the egress/ingress delay keys append their Delay
+    stage after it."""
 
     cfg: Config
     manager: Any = None
     model: Any = None
+    interpose: Any = None
     device: Any = None
 
     def __post_init__(self) -> None:
         self.device = device_mod.resolve(self.device)
         if self.manager is None:
             self.manager = managers_mod.get(self.cfg.peer_service_manager)
+        self._user_interpose = self.interpose   # before the delay wrap
+        self.interpose = interpose_mod.config_delays(self.cfg,
+                                                     self.interpose)
         self.comm = LocalComm(n_global=self.cfg.n_nodes,
                               inbox_cap=self.cfg.inbox_cap,
                               msg_words=self.cfg.msg_words,
@@ -262,8 +287,11 @@ class Cluster:
             manager=self.manager.init(cfg, comm),
             model=self.model.init(cfg, comm) if self.model is not None
             else (),
-            delivery=(),
+            delivery=(delivery_mod.init(cfg, comm)
+                      if delivery_mod.enabled(cfg) else ()),
             stats=Stats(zero, zero, zero),
+            interpose=(self.interpose.init(cfg, comm)
+                       if self.interpose is not None else ()),
             n_active=(torch.tensor(cfg.n_nodes, dtype=torch.int32,
                                    device=dev)
                       if cfg.width_operand else ()),
@@ -271,7 +299,7 @@ class Cluster:
 
     def step(self, state: ClusterState) -> ClusterState:
         return round_body(self.cfg, self.manager, self.model, self.comm,
-                          state)
+                          state, interpose=self.interpose)
 
     def steps(self, state: ClusterState, k: int) -> ClusterState:
         """Run k rounds (``Config.superstep`` folds rounds without
@@ -297,7 +325,8 @@ class Cluster:
                                        device=self.device)
                 return sent[i]
             state, tr = round_body(self.cfg, self.manager, self.model,
-                                   self.comm, state, capture=True,
+                                   self.comm, state,
+                                   interpose=self.interpose, capture=True,
                                    sent_out=place)
             rounds.append(tr)
         return state, TraceRound(

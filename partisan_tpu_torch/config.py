@@ -2,11 +2,13 @@
 
 The fields are the reference's, by name and default, for everything this
 slice reads or refuses, so bench.py's ``Config(...)`` call builds the
-same configuration here.  This slice of the port runs HyParView + Plumtree on
-the plane-major wire with groups partitions and every observability
-plane off; every option it does not port raises ``NotImplementedError``
-at construction instead of being silently ignored.  ``superstep`` is a
-loop fold with no effect on results, so it is accepted.
+same configuration here.  The port runs the full-mesh and HyParView
+managers on the plane-major wire, with groups or dense partitions, the
+send-path delay keys and the ack lane of the delivery layer, and every
+observability plane off; every option it does not port raises
+``NotImplementedError`` at construction instead of being silently
+ignored.  ``superstep`` is a loop fold with no effect on results, so it
+is accepted.
 """
 
 from __future__ import annotations
@@ -78,8 +80,7 @@ class PlumtreeConfig:
 _OFF = {
     "metrics": False, "latency": False, "flight_rounds": 0, "health": 0,
     "provenance": False, "elastic": False, "salt_operand": False,
-    "channel_capacity": False, "egress_delay_ms": 0,
-    "ingress_delay_ms": 0, "ack_cap": 0, "causal_labels": (),
+    "channel_capacity": False, "causal_labels": (),
     "causal_p2p_labels": (), "plane_major": True,
 }
 # Parameter blocks of unported subsystems (distance, control, traffic,
@@ -94,11 +95,14 @@ class Config:
     n_nodes: int = 16
     peer_service_manager: str = "fullmesh"
     round_ms: int = 1_000
+    periodic_interval_ms: int = 10_000
+    retransmit_interval_ms: int = 1_000
     lazy_tick_ms: int = 1_000
     exchange_tick_ms: int = 10_000
     timer_stagger: bool = True
     egress_delay_ms: int = 0
     ingress_delay_ms: int = 0
+    delay_buf_cap: int = 0
     causal_labels: tuple = ()
     ack_cap: int = 0
     causal_p2p_labels: tuple = ()
@@ -111,6 +115,7 @@ class Config:
     ingress: Any = None
     watchdog: Any = None
     inbox_cap: int = 32
+    emit_cap: int = 16
     emit_compact: int = 0
     msg_words: int = 12
     max_broadcasts: int = 64
@@ -158,16 +163,12 @@ class Config:
             if getattr(self, key) is not None:
                 raise NotImplementedError(
                     f"Config.{key} is not ported to partisan_tpu_torch yet")
-        if self.peer_service_manager != "hyparview":
+        if self.peer_service_manager not in ("fullmesh", "hyparview"):
             raise NotImplementedError(
                 f"peer_service_manager={self.peer_service_manager!r}: "
-                "only 'hyparview' is ported")
+                "only 'fullmesh' and 'hyparview' are ported")
         if self.hyparview.xbot:
             raise NotImplementedError("HyParView X-BOT is not ported yet")
-        if self.resolved_partition_mode != "groups":
-            raise NotImplementedError(
-                "dense partitions are not ported yet: set "
-                "partition_mode='groups'")
 
     @property
     def n_channels(self) -> int:
@@ -205,6 +206,14 @@ class Config:
         return gids if self.timer_stagger else 0
 
     @property
+    def gossip_every(self) -> int:
+        return self.rounds(self.periodic_interval_ms)
+
+    @property
+    def retransmit_every(self) -> int:
+        return self.rounds(self.retransmit_interval_ms)
+
+    @property
     def lazy_tick_every(self) -> int:
         return self.rounds(self.lazy_tick_ms)
 
@@ -219,6 +228,17 @@ class Config:
     @property
     def promotion_every(self) -> int:
         return self.rounds(self.hyparview.random_promotion_interval_ms)
+
+    @property
+    def send_delay_rounds(self) -> int:
+        """Total send-path hold of the egress/ingress delay keys (0 = no
+        delay stage; ``interpose.config_delays`` installs it)."""
+        r = 0
+        if self.egress_delay_ms > 0:
+            r += self.rounds(self.egress_delay_ms)
+        if self.ingress_delay_ms > 0:
+            r += self.rounds(self.ingress_delay_ms)
+        return r
 
     def replace(self, **kw: Any) -> "Config":
         return dataclasses.replace(self, **kw)

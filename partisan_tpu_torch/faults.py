@@ -1,6 +1,8 @@
-"""Fault injection: crash-stop masks, groups partitions, iid link drops.
+"""Fault injection: crash-stop masks, partitions, iid link drops.
 
-Port of ``partisan_tpu/faults.py`` (groups partition mode only).  Every
+Port of ``partisan_tpu/faults.py``.  Partitions come in two modes: a
+dense ``bool[n, n]`` matrix (True = edge severed, any edge set) and
+groups (``int32[n]`` labels, edges cut between differing labels).  Every
 drop decision depends only on (seed, round, src, dst, salt) through the
 murmur3 finalizer, so a fault schedule replays exactly and matches the
 reference bit for bit.
@@ -51,16 +53,23 @@ def _mix32(x: torch.Tensor) -> torch.Tensor:
 class FaultState(NamedTuple):
     alive: torch.Tensor      # bool[n] — False = crash-stopped
     link_drop: torch.Tensor  # float32 scalar — iid per-edge drop probability
-    partition: torch.Tensor  # int32[n] — group ids; edges between groups cut
+    partition: torch.Tensor  # dense: bool[n, n], True = edge severed;
+    #                          groups: int32[n] labels, edges between
+    #                          differing labels cut
 
 
-def none(n: int, partition_mode: str = "groups", device=None) -> FaultState:
-    if partition_mode != "groups":
-        raise NotImplementedError("only groups partitions are ported")
+def none(n: int, partition_mode: str = "dense", device=None) -> FaultState:
+    if partition_mode == "dense":
+        part = torch.zeros((n, n), dtype=torch.bool, device=device)
+    elif partition_mode == "groups":
+        part = torch.zeros(n, dtype=torch.int32, device=device)
+    else:
+        raise ValueError(f"partition_mode {partition_mode!r} not in "
+                         f"('dense', 'groups')")
     return FaultState(
         alive=torch.ones(n, dtype=torch.bool, device=device),
         link_drop=torch.tensor(0.0, dtype=torch.float32, device=device),
-        partition=torch.zeros(n, dtype=torch.int32, device=device))
+        partition=part)
 
 
 def edge_hash(seed: int, rnd: torch.Tensor, salt: int, src, dst
@@ -108,11 +117,17 @@ def edge_cut(faults: FaultState, src: torch.Tensor, dst: torch.Tensor,
     ok_dst = dst >= 0
     d = torch.where(ok_dst, dst, 0)
     s = torch.where(src >= 0, src, 0)
-    packed = pack_wire_info(faults, None)
     # gathers clamp out-of-range ids (the reference's gather semantics);
     # the hash below reads the unclamped ids
-    ps, pd = packed[s.clamp(max=n - 1)], packed[d.clamp(max=n - 1)]
-    cut = ((ps >> 2) != (pd >> 2)) | ((ps & 1) == 0) | ((pd & 1) == 0)
+    sc = s.clamp(max=n - 1).to(torch.int64)
+    dc = d.clamp(max=n - 1).to(torch.int64)
+    if faults.partition.dim() == 2:
+        cut = faults.partition[sc, dc] | ~faults.alive[dc] \
+            | ~faults.alive[sc]
+    else:
+        packed = pack_wire_info(faults, None)
+        ps, pd = packed[sc], packed[dc]
+        cut = ((ps >> 2) != (pd >> 2)) | ((ps & 1) == 0) | ((pd & 1) == 0)
     drop = hash_bernoulli(edge_hash(seed, rnd, salt, s, d), faults.link_drop)
     return ok_dst & (cut | drop)
 
@@ -177,10 +192,20 @@ def set_link_drop(faults: FaultState, p: float) -> FaultState:
 
 
 def inject_partition(faults: FaultState, group_a, group_b) -> FaultState:
-    """Sever all edges between two groups that together cover every node
-    (groups mode expresses only full splits).  Composes with an existing
+    """Sever all edges between two node groups.  Dense mode cuts exactly
+    the a x b edges, both ways.  Groups mode expresses only full splits
+    (the two groups must cover every node); it composes with an existing
     split as a refinement, then re-densifies the labels on the host."""
     p = faults.partition
+    if p.dim() == 2:
+        a = torch.as_tensor(np.asarray(group_a), dtype=torch.int64,
+                            device=p.device)
+        b = torch.as_tensor(np.asarray(group_b), dtype=torch.int64,
+                            device=p.device)
+        p = p.clone()
+        p[a[:, None], b[None, :]] = True
+        p[b[:, None], a[None, :]] = True
+        return faults._replace(partition=p)
     sa = set(np.asarray(group_a).tolist())
     sb = set(np.asarray(group_b).tolist())
     if sa & sb or len(sa) + len(sb) != p.shape[0]:

@@ -1,9 +1,13 @@
-"""Build, load and count the port's hand-written CUDA kernel.
+"""Build, load and count the port's hand-written kernels.
 
-The kernel is ``csrc/interleave.cu`` with a plain C interface.  At first
-use it is compiled with nvcc for ``sm_90a`` into
-``build/partisan_tpu_torch/`` at the repository root, under a name keyed
-by a hash of its source, and loaded with ctypes.  A failed build raises.
+- ``csrc/interleave.cu``, CUDA C++ with a plain C interface: at first use
+  it is compiled with nvcc for ``sm_90a`` into ``build/partisan_tpu_torch/``
+  at the repository root, under a name keyed by a hash of its source,
+  and loaded with ctypes.  A failed build raises.
+- ``csrc/minimal_triton.py``, a Triton kernel: imported (and with it
+  ``triton``) only by :func:`minimal_fn`, which first points Triton's
+  cache at ``build/partisan_tpu_torch/triton/``; Triton compiles it
+  there at its first launch.
 
 ``launches`` counts, per kernel, the launches its wrapper made — the
 evidence that a run went through the kernel.
@@ -20,9 +24,11 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG.parent / "build" / "partisan_tpu_torch"
+TRITON_CACHE = BUILD_DIR / "triton"
 
-launches = {"interleave": 0}
+launches = {"interleave": 0, "minimal": 0}
 _fn = None
+_minimal = None
 
 
 def reset_launches() -> None:
@@ -81,3 +87,14 @@ def interleave_fn():
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+def minimal_fn():
+    """The Triton kernel ``double_kernel`` of ``csrc/minimal_triton.py``;
+    its import brings in ``triton`` (absent where there is no card)."""
+    global _minimal
+    if _minimal is None:
+        os.environ["TRITON_CACHE_DIR"] = str(TRITON_CACHE)
+        from partisan_tpu_torch.csrc import minimal_triton
+        _minimal = minimal_triton.double_kernel
+    return _minimal

@@ -54,3 +54,11 @@ def zero_stack(cfg, shape: tuple, device=None) -> plane_ops.Planes:
     return plane_ops.zero_planes(
         tuple(shape), tuple(T.wire_dtype(i) for i in range(cfg.msg_words)),
         device=device)
+
+
+def zero_wire(cfg, shape: tuple, device=None) -> plane_ops.Planes:
+    """An all-empty wire-width record block, for queued-copy buffers (the
+    ack store, the delay stage's hold buffer).  No trailing plane words
+    are ported, so the wire width is ``msg_words``."""
+    return plane_ops.zero_planes(tuple(shape), cfg.wire_dtypes,
+                                 device=device)

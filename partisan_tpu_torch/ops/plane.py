@@ -130,6 +130,19 @@ def take_rows(p: Planes, idx: torch.Tensor, *, fill: bool = False
     return Planes(torch.gather(w, 1, safe) for w in p)
 
 
+def scatter_rows(p: Planes, idx: torch.Tensor, src: Planes) -> Planes:
+    """``out[i, idx[i, j]] = src[i, j]`` into an ``[n, C]`` stack; an
+    index of ``C`` drops its record.  The kept indices of a row must be
+    distinct (then the result is the same on every device)."""
+    C = p[0].shape[1]
+    idx = idx.to(torch.int64)
+    out = []
+    for w, s in zip(p, src):
+        pad = torch.cat([w, w.new_zeros((w.shape[0], 1))], dim=1)
+        out.append(pad.scatter_(1, idx, s.to(w.dtype))[:, :C])
+    return Planes(out)
+
+
 # ---------------------------------------------------------------------------
 # The plane->wire interleave
 # ---------------------------------------------------------------------------

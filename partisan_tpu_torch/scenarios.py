@@ -31,6 +31,17 @@ def _sync(st) -> None:
     int(st.rnd)
 
 
+def _boot_fullmesh(cl, n):
+    """Every node joins the full mesh via node 0, then two ``K_PROG``
+    executions let membership gossip settle."""
+    st = cl.init()
+    m = st.manager
+    for i in range(1, n):
+        m = cl.manager.join(cl.cfg, m, i, 0)
+    st = cl.steps(st._replace(manager=m), K_PROG)
+    return cl.steps(st, K_PROG)
+
+
 def _boot_ladder(make_cluster, n, widths=None, wave_factor=8,
                  settle_execs=1, on_wave=None, final_state=None,
                  upper_wave_factor=2):

@@ -28,11 +28,22 @@ W_FLAGS = 7     # bitfield
 P0, P1, P2, P3 = HDR_WORDS, HDR_WORDS + 1, HDR_WORDS + 2, HDR_WORDS + 3
 
 
+# W_FLAGS bits
+F_ACK_REQUIRED = 1 << 0     # {ack, true} forward option
+F_RETRANSMISSION = 1 << 1   # re-sent by the retransmit timer
+F_CAUSAL = 1 << 2           # routed through a causality lane
+F_DELAY_RELEASED = 1 << 4   # released by the egress/ingress delay stage
+
+
 class MsgKind(enum.IntEnum):
-    """The message kinds this port's slice emits and handles (values
-    identical to the reference's enum)."""
+    """Every message kind of the reference (values identical), so a trace
+    renders the same kind names on both sides."""
 
     NONE = 0
+    PING = 1
+    PONG = 2
+    ACK = 3
+    P2P_ACK = 4
     HPV_JOIN = 10
     HPV_FORWARD_JOIN = 11
     HPV_NEIGHBOR = 12
@@ -41,11 +52,27 @@ class MsgKind(enum.IntEnum):
     HPV_DISCONNECT = 15
     HPV_SHUFFLE = 16
     HPV_SHUFFLE_REPLY = 17
+    HPV_XBOT_OPT = 18
+    HPV_XBOT_OPT_REPLY = 19
+    SCAMP_SUBSCRIPTION = 20
+    SCAMP_UNSUBSCRIBE = 21
+    SCAMP_KEEP = 22
+    SCAMP_REPLACE = 23
+    HPV_XBOT_REPLACE = 24
+    HPV_XBOT_SWITCH = 25
+    HPV_XBOT_SWITCH_REPLY = 26
+    HPV_XBOT_REPLACE_REPLY = 27
     PT_GOSSIP = 30
     PT_IHAVE = 31
     PT_GRAFT = 32
     PT_PRUNE = 33
     PT_IHAVE_ACK = 34
+    APP = 40
+    RPC_CALL = 41
+    RPC_RESPONSE = 42
+    GEN_CALL = 43
+    GEN_REPLY = 44
+    GEN_CAST = 45
 
 
 # kind/channel/flags fit int8, walk and relay TTLs int16; ids, clocks,

@@ -175,6 +175,38 @@ def test_fault_case_bit_identical(pair, booted):
         assert_same(js, ts, f"healed exec {i}")
 
 
+def test_record_under_omission_schedule_bit_identical(pair, booted):
+    """The bench path through the generic wire arm: an OmissionSchedule
+    (5% of the slots of four rounds, from a numpy seed, plus every slot
+    of node 0 in the broadcast round) during a broadcast, record(4)."""
+    from partisan_tpu import interpose as ji
+    from partisan_tpu_torch import interpose as ti
+
+    _, _, jm, tm = pair
+    js, ts = booted[4], booted[5]
+    r0 = int(js.rnd)
+    drops = np.random.default_rng(11).random((4, N, 77)) < 0.05
+    drops[0, 0, :] = True
+    jsched = ji.OmissionSchedule(drops, start=r0)
+    tsched = ti.OmissionSchedule(drops, start=r0)
+    jcl = JCluster(JConfig(**bench_kwargs(JHyParView, JPlumtreeCfg)),
+                   model=jm, interpose=jsched)
+    tcl = TCluster(TConfig(**bench_kwargs(THyParView, TPlumtreeCfg)),
+                   model=tm, interpose=tsched, device="cpu")
+    js = js._replace(model=jm.broadcast(js.model, 0, 0, r0),
+                     interpose=jsched.init(jcl.cfg, jcl.comm))
+    ts = ts._replace(model=tm.broadcast(ts.model, 0, 0, r0),
+                     interpose=tsched.init(tcl.cfg, tcl.comm))
+    assert_same(js, ts, "schedule installed")
+    js, jtr = jcl.record(js, 4)
+    ts, ttr = tcl.record(ts, 4)
+    np.testing.assert_array_equal(np.asarray(jtr.sent), ttr.sent.numpy())
+    np.testing.assert_array_equal(np.asarray(jtr.dropped),
+                                  ttr.dropped.numpy())
+    assert_same(js, ts, "after record under omissions")
+    assert not bool((ttr.sent[0, 0, :, 0] != 0).any())
+
+
 @pytest.mark.parametrize("variant", ["staggered_no_width_operand",
                                      "quiet_features_off"])
 def test_config_variants_bit_identical(variant):
@@ -234,7 +266,9 @@ def test_port_imports_no_jax():
     code = ("import sys; sys.path.insert(0, '.'); "
             "import partisan_tpu_torch, partisan_tpu_torch.cluster, "
             "partisan_tpu_torch.scenarios, partisan_tpu_torch.state_io, "
-            "partisan_tpu_torch.kernels; "
+            "partisan_tpu_torch.kernels, partisan_tpu_torch.filibuster, "
+            "partisan_tpu_torch.probe, partisan_tpu_torch.trace, "
+            "partisan_tpu_torch.analysis, partisan_tpu_torch.interpose; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'partisan_tpu' "
             "or m.startswith('partisan_tpu.')]; "
@@ -259,7 +293,8 @@ def test_entry_points_default_to_cuda():
 @pytest.mark.parametrize("override", [
     dict(metrics=True), dict(latency=True), dict(health=10),
     dict(provenance=True), dict(plane_major=False),
-    dict(partition_mode="dense"), dict(salt_operand=True),
+    dict(causal_labels=("chat",)), dict(channel_capacity=True),
+    dict(salt_operand=True),
     dict(peer_service_manager="scamp_v2"),
     dict(hyparview=THyParView(xbot=True)),
 ])

@@ -1,5 +1,5 @@
-"""The port's kernel build and its CUDA kernels against their plain
-versions.  This file imports no JAX, so the card-only cases run on a
+"""The port's kernel build and its CUDA and Triton kernels against their
+plain versions.  This file imports no JAX, so the card-only cases run on a
 machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider \
@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from partisan_tpu_torch import kernels
+from partisan_tpu_torch import kernels, probe
 from partisan_tpu_torch.ops import plane as plane_ops
 
 BENCH_DTYPES = [torch.int8, torch.int32, torch.int32, torch.int8,
@@ -46,7 +46,7 @@ def test_library_name_keyed_by_source_hash(tmp_path, monkeypatch):
 def test_launch_counts_reset():
     kernels.launches["interleave"] += 3
     kernels.reset_launches()
-    assert kernels.launches == {"interleave": 0}
+    assert kernels.launches == {"interleave": 0, "minimal": 0}
 
 
 def _cuda_planes(shape, dtypes, seed):
@@ -91,3 +91,18 @@ def test_interleave_cuda_rejects_what_the_kernel_does_not_take():
         plane_ops.interleave(plane_ops.Planes([w.t()]))   # not contiguous
     with pytest.raises(TypeError):
         plane_ops.interleave(plane_ops.Planes([w.to(torch.int64)]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(256, 256), (1000, 37), (1,)])
+def test_minimal_triton_kernel_matches_plain(shape):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the Triton kernel has no CPU mode")
+    x = torch.from_numpy(np.random.default_rng(7).integers(
+        -2 ** 31, 2 ** 31, shape, dtype=np.int64).astype(np.int32)).cuda()
+    before = kernels.launches["minimal"]
+    got = probe.minimal(x)
+    torch.cuda.synchronize()
+    assert kernels.launches["minimal"] == before + 1
+    assert torch.equal(got, probe.minimal_plain(x))
+    assert kernels.TRITON_CACHE.is_dir()

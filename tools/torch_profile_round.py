@@ -11,8 +11,10 @@ and prints JSON lines: the window's wall time, the summed device time
 of its kernels and the device idle share, kernel launches per round,
 and the kernels with the most device time.  One more window traces
 ``record`` over ``--rounds`` rounds (the capture arm with the
-interleave kernel).  The
-card's name and power limit ride every line.
+interleave kernel), and a third the same ``record`` under an all-pass
+``OmissionSchedule`` (the Filibuster path's round: the generic wire
+arm with interposition).  The card's name and power limit ride every
+line.
 """
 
 from __future__ import annotations
@@ -24,12 +26,15 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
+from partisan_tpu_torch import cluster as cluster_mod  # noqa: E402
+from partisan_tpu_torch import interpose  # noqa: E402
 from partisan_tpu_torch import scenarios as sc  # noqa: E402
 
 
@@ -111,6 +116,19 @@ def main() -> int:
 
     print(json.dumps({"n": n, **window(rec, args.rounds, "record", args.top,
                                        tag)}), flush=True)
+
+    sched = interpose.OmissionSchedule(
+        np.zeros((1, n, 80), np.bool_), start=int(st.rnd))
+    cl_om = cluster_mod.Cluster(cl.cfg, model=cl.model, interpose=sched)
+    st_om = st._replace(interpose=sched.init(cl_om.cfg, cl_om.comm))
+    cl_om.record(st_om, 1)
+
+    def rec_om():
+        cl_om.record(st_om, args.rounds)
+
+    print(json.dumps({"n": n, **window(rec_om, args.rounds,
+                                       "record_omission", args.top, tag)}),
+          flush=True)
     return 0
 
 
