@@ -4,17 +4,23 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases (any failure exits non-zero; no phase's failure is caught):
 
-1. environment card: torch / CUDA / nvcc / Triton versions, the card's
-   name and power limit;
-2. build: the CUDA kernel (partisan_tpu_torch/csrc/interleave.cu) with
-   nvcc into build/partisan_tpu_torch/, and the Triton kernel
-   (partisan_tpu_torch/csrc/minimal_triton.py) into
-   build/partisan_tpu_torch/triton/;
-3. kernel check: the kernel against its plain PyTorch version, bit for
-   bit, at the main path's shape (and a ragged shape), with its time,
-   the plain version's time, the time of one library call computing the
-   same function (torch.stack on the mixed-dtype planes) and the least
-   time the card could take;
+1. environment card: torch / CUDA / nvcc versions (and the installed
+   Triton's, which the port does not use), the card's name and power
+   limit;
+2. build: one nvcc call compiles both CUDA kernels
+   (partisan_tpu_torch/csrc/interleave.cu and minimal.cu) into one
+   library under build/partisan_tpu_torch/; its seconds and the
+   compiler's register, shared-memory and spill report;
+3. kernel check: the interleave against its plain PyTorch version, bit
+   for bit, at the main path's shape and a ragged one, then at ragged
+   tails of each dtype, planes that are views at an odd element offset,
+   W in {1, 12, 16, 32}, an out= slice of a [3, ...] buffer and an
+   output that is not 16-byte aligned.  At the main shape: its time by
+   CUDA events (ms), its own device time per call from a torch.profiler
+   window (device_ms), the host's wall per call of back-to-back calls
+   with no synchronize (host_ms), the plain version's time, the time of
+   one library call computing the same function (torch.stack on the
+   mixed-dtype planes) and the least time the card could take;
 4. GPU vs CPU parity at n=512: bootstrap ladder, broadcast, convergence
    and record(5) on the card and on the CPU — every state leaf and both
    trace leaves bit-identical (the CPU path is what the tests hold
@@ -26,9 +32,11 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    just after; every kernel of the path must have launched;
 6. the probe path (partisan_tpu_torch.probe: the minimal kernel at
    [256, 256], the interleave on int32 planes at n=8192 and 32768),
-   counts reset just before and read just after; then the minimal
+   counts reset just before and read just after, each interleave timed
+   as in phase 3 beside permute(1, 2, 0).contiguous(); then the minimal
    kernel against its plain version and torch.mul, bit for bit, at
-   [256, 256] and a ragged [1000, 37], with its times and bound;
+   [256, 256], a ragged [1000, 37] and on views at odd element offsets,
+   with its times and bound;
 7. Filibuster parity, small: the three checker setups of
    tests/test_filibuster.py (N=6 full mesh, direct mail unacked and
    acked, max_faults 1 and 2) on the card and on the CPU — every Result
@@ -89,9 +97,10 @@ def nvcc_version() -> str:
 
 
 def time_ms(fn, reps: int = 20) -> float:
-    """Mean device time of one call, from CUDA events over ``reps``
-    calls after a warm-up (the inputs exceed the 50 MB L2 at the main
-    shape, so every call reads device memory)."""
+    """Mean time of one call, from CUDA events over ``reps`` calls after a
+    warm-up (the inputs exceed the 50 MB L2 at the main shape, so every
+    call reads device memory).  Where the host takes longer to launch a
+    call than the card to run it, this is the host's time."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -104,52 +113,156 @@ def time_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_check(shape, dtypes, seed: int) -> dict:
-    """The interleave kernel against its plain version on the card."""
+def _self_device_us(e) -> float:
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(e, attr):
+            return float(getattr(e, attr))
+    return 0.0
+
+
+def device_host_ms(fn, reps: int = 20) -> tuple:
+    """``(device_ms, host_ms)`` per call: the summed self device time of
+    the kernels ``fn`` runs, from a torch.profiler window over ``reps``
+    calls, and the host's wall per call over ``reps`` back-to-back calls
+    with no synchronize inside (the launch path's cost)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    busy = sum(_self_device_us(e) for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA"))
+    return busy / 1e3 / reps, host
+
+
+def timed(fn, reps: int = 20) -> dict:
+    device, host = device_host_ms(fn, reps)
+    return {"ms": time_ms(fn, reps), "device_ms": device, "host_ms": host}
+
+
+def cuda_random(shape, dt, gen, offset: int = 0) -> torch.Tensor:
+    """Random values over ``dt``'s whole range on the card; with
+    ``offset`` a view that starts that many elements into its buffer,
+    so not 16-byte aligned."""
+    info = torch.iinfo(dt)
+    vals = torch.randint(info.min, info.max, shape, generator=gen,
+                         device="cuda", dtype=torch.int64).to(dt)
+    buf = torch.empty(math.prod(shape) + offset, dtype=dt, device="cuda")
+    view = buf[offset:].view(shape)
+    view.copy_(vals)
+    return view
+
+
+def interleave_exact(ws, out=None) -> dict:
+    """One interleave launch against the plain version, bit for bit."""
     from partisan_tpu_torch import kernels
     from partisan_tpu_torch.ops import plane as plane_ops
 
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    ws = []
-    for dt in dtypes:
-        info = torch.iinfo(dt)
-        ws.append(torch.randint(info.min, info.max, shape, generator=gen,
-                                device="cuda", dtype=torch.int64).to(dt))
-    planes = plane_ops.Planes(ws)
     before = kernels.launches["interleave"]
-    got = plane_ops.interleave(planes)
+    got = plane_ops.interleave(plane_ops.Planes(ws), out=out)
     torch.cuda.synchronize()
     if kernels.launches["interleave"] != before + 1:
         raise AssertionError("interleave wrapper did not launch its kernel")
     want = plane_ops.interleave_plain(ws)
     err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
     if not torch.equal(got, want):
-        raise AssertionError(f"interleave kernel disagrees at {shape}: "
+        raise AssertionError(f"interleave kernel disagrees on "
+                             f"{len(ws)} planes of {tuple(ws[0].shape)}: "
                              f"max abs err {err}")
+    return {"records": ws[0].numel(), "words": len(ws), "max_abs_err": err,
+            "got": got}
+
+
+def kernel_check(shape, dtypes, seed: int) -> dict:
+    """The interleave kernel against its plain version on the card, with
+    its times beside the plain version's, the library call's and the
+    bound."""
+    from partisan_tpu_torch.ops import plane as plane_ops
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    ws = [cuda_random(shape, dt, gen) for dt in dtypes]
+    planes = plane_ops.Planes(ws)
+    res = interleave_exact(ws)
+    got = res.pop("got")
     # the library call: torch.stack promotes the mixed-dtype planes itself
     if not torch.equal(torch.stack(ws, dim=-1), got):
         raise AssertionError(f"torch.stack disagrees at {shape}")
-    m = math.prod(shape)
-    nbytes = sum(w.numel() * w.element_size() for w in ws) + got.numel() * 4
+    del got
+    nbytes = sum(w.numel() * w.element_size() for w in ws) \
+        + math.prod(shape) * len(ws) * 4
+    lib_dev, _ = device_host_ms(lambda: torch.stack(ws, dim=-1))
     return {
-        "shape": list(shape), "words": len(ws), "records": m,
-        "max_abs_err": err,
-        "ms": time_ms(lambda: plane_ops.interleave(planes)),
+        "shape": list(shape), **res,
+        **timed(lambda: plane_ops.interleave(planes)),
         "plain_ms": time_ms(lambda: plane_ops.interleave_plain(ws)),
         "library_ms": time_ms(lambda: torch.stack(ws, dim=-1)),
+        "library_device_ms": lib_dev,
         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
         "bytes": nbytes,
     }
 
 
-def minimal_check(shape, seed: int) -> dict:
-    """The Triton minimal kernel against its plain version and torch.mul
-    on random int32 inputs (``x * 2`` wraps the same way in all three)."""
+def interleave_edges(bench_dtypes, seed: int) -> list:
+    """The interleave, bit for bit, where its edge paths run: ragged
+    tails of each dtype, planes that are views at an odd element offset,
+    W in {1, 12, 16, 32}, an out= slice of a [3, ...] buffer (as
+    Cluster.record passes) and an output that is not 16-byte aligned."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    mixed = [torch.int8, torch.int16, torch.int32]
+    out = []
+    for dt in mixed:
+        for m in (1, 15, 513, 65553):
+            ws = [cuda_random((m,), dt, gen) for _ in range(16)]
+            out.append({"case": f"ragged {dt}", **interleave_exact(ws)})
+        ws = [cuda_random((1541,), dt, gen, offset=1) for _ in range(16)]
+        out.append({"case": f"unaligned {dt}", **interleave_exact(ws)})
+    ws = [cuda_random((N_MAIN, 7), dt, gen, offset=i % 2)
+          for i, dt in enumerate(bench_dtypes)]
+    out.append({"case": "half unaligned, bench dtypes",
+                **interleave_exact(ws)})
+    for W in (1, 12, 16, 32):
+        ws = [cuda_random((70001,), mixed[i % 3], gen) for i in range(W)]
+        out.append({"case": f"W={W}", **interleave_exact(ws)})
+    shape = (1000, 77)
+    ws = [cuda_random(shape, dt, gen) for dt in bench_dtypes]
+    buf = torch.full((3,) + shape + (16,), -7, dtype=torch.int32,
+                     device="cuda")
+    res = interleave_exact(ws, out=buf[1])
+    if res["got"].data_ptr() != buf[1].data_ptr() \
+            or not bool((buf[0] == -7).all() & (buf[2] == -7).all()):
+        raise AssertionError("interleave into out=buf[1] wrote elsewhere")
+    out.append({"case": "out=buf[1] of [3, 1000, 77, 16]", **res})
+    flat = torch.full((math.prod(shape) * 16 + 1,), -7, dtype=torch.int32,
+                      device="cuda")
+    res = interleave_exact(ws, out=flat[1:].view(shape + (16,)))
+    if int(flat[0]) != -7:
+        raise AssertionError("interleave into an unaligned out wrote before "
+                             "it")
+    out.append({"case": "out not 16-byte aligned", **res})
+    for r in out:
+        del r["got"]
+    return out
+
+
+def minimal_check(shape, seed: int, offset: int = 0, timing: bool = True
+                  ) -> dict:
+    """The minimal kernel against its plain version and torch.mul on
+    random int32 inputs (``x * 2`` wraps the same way in all three); with
+    ``offset`` on a view that starts that many elements into its
+    buffer."""
     from partisan_tpu_torch import kernels, probe
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    x = torch.randint(-2 ** 31, 2 ** 31, shape, generator=gen,
-                      device="cuda", dtype=torch.int64).to(torch.int32)
+    x = cuda_random(shape, torch.int32, gen, offset=offset)
     before = kernels.launches["minimal"]
     got = probe.minimal(x)
     torch.cuda.synchronize()
@@ -160,12 +273,27 @@ def minimal_check(shape, seed: int) -> dict:
     if not torch.equal(got, want) or not torch.equal(torch.mul(x, 2), got):
         raise AssertionError(f"minimal kernel disagrees at {shape}: max abs "
                              f"err {err}")
-    nbytes = 2 * x.numel() * 4
-    return {"shape": list(shape), "max_abs_err": err,
-            "ms": time_ms(lambda: probe.minimal(x), reps=200),
-            "plain_ms": time_ms(lambda: probe.minimal_plain(x), reps=200),
-            "library_ms": time_ms(lambda: torch.mul(x, 2), reps=200),
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes}
+    res = {"shape": list(shape), "offset": offset, "max_abs_err": err}
+    if timing:
+        nbytes = 2 * x.numel() * 4
+        lib_dev, lib_host = device_host_ms(lambda: torch.mul(x, 2), 200)
+        res.update(**timed(lambda: probe.minimal(x), reps=200),
+                   plain_ms=time_ms(lambda: probe.minimal_plain(x), 200),
+                   library_ms=time_ms(lambda: torch.mul(x, 2), 200),
+                   library_device_ms=lib_dev, library_host_ms=lib_host,
+                   bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bytes=nbytes)
+    return res
+
+
+def ptxas_report() -> list:
+    """The compiler's register / shared memory / spill lines for each
+    kernel of the library."""
+    from partisan_tpu_torch import kernels
+
+    text = kernels.lib_path().with_suffix(".log").read_text()
+    return [ln.split(":", 1)[1].strip() for ln in text.splitlines()
+            if "ptxas info" in ln and ("Used" in ln or "Compiling" in ln)] \
+        + [ln.strip() for ln in text.splitlines() if "spill" in ln]
 
 
 def state_leaves(tree):
@@ -351,29 +479,24 @@ def main() -> int:
     card = smi_line()
     kind = torch.cuda.get_device_name(0)
 
-    # 1. environment card
+    # 1. environment card (Triton's version is reported, not used)
     from importlib import metadata
 
+    try:
+        triton_version = metadata.version("triton")
+    except metadata.PackageNotFoundError:
+        triton_version = None
     log({"phase": "env", "python": sys.version.split()[0],
          "torch": torch.__version__, "cuda": torch.version.cuda,
-         "nvcc": nvcc_version(), "triton": metadata.version("triton"),
+         "nvcc": nvcc_version(), "triton": triton_version,
          "device": kind, "count": torch.cuda.device_count(), "card": card})
 
-    # 2. build the kernels: nvcc, then Triton's compile at a first
-    #    launch of the raw kernel (not the wrapper: it counts nothing)
+    # 2. build both kernels with one nvcc call; the launch path's reads
     t0 = time.perf_counter()
     compiled = kernels.build()
-    log({"phase": "build", "source": str(kernels.source()),
-         "compiled": compiled, "seconds": time.perf_counter() - t0})
-    t0 = time.perf_counter()
-    scratch = torch.zeros(1, dtype=torch.int32, device="cuda")
-    kernels.minimal_fn()[(1,)](scratch, scratch, 1,
-                               BLOCK=probe.MINIMAL_BLOCK)
-    torch.cuda.synchronize()
-    log({"phase": "build", "source":
-         "partisan_tpu_torch/csrc/minimal_triton.py",
-         "cache": str(kernels.TRITON_CACHE),
-         "seconds": time.perf_counter() - t0})
+    log({"phase": "build", "sources": [str(p) for p in kernels.sources()],
+         "library": str(kernels.lib_path()), "compiled": compiled,
+         "seconds": time.perf_counter() - t0, "ptxas": ptxas_report()})
 
     # 3. kernel checks against the plain version
     bench_dtypes = list(sc.bench_config(8).wire_dtypes)
@@ -383,6 +506,8 @@ def main() -> int:
     ragged = kernel_check((4099, 13), bench_dtypes[:12], seed=2)
     log({"phase": "kernel_check", "kernel": "interleave", "card": card,
          **ragged})
+    edges = interleave_edges(bench_dtypes, seed=6)
+    log({"phase": "kernel_edges", "kernel": "interleave", "cases": edges})
 
     # 4. GPU vs CPU parity at n=512
     t0 = time.perf_counter()
@@ -452,17 +577,27 @@ def main() -> int:
         planes = torch.arange(probe.W * n * probe.S, dtype=torch.int32,
                               device="cuda").reshape(probe.W, n, probe.S)
         ws = list(planes.unbind(0))
+        # host-bound calls: 200 of them, so one slow host moment does not
+        # set the mean
+        lib_dev, lib_host = device_host_ms(
+            lambda: planes.permute(1, 2, 0).contiguous(), 200)
         log({"phase": "probe_interleave", "n": n, "card": card,
-             "ms": time_ms(lambda: plane_ops.interleave(
-                 plane_ops.Planes(ws))),
-             "plain_ms": time_ms(lambda: plane_ops.interleave_plain(ws)),
+             **timed(lambda: plane_ops.interleave(plane_ops.Planes(ws)),
+                     200),
+             "plain_ms": time_ms(lambda: plane_ops.interleave_plain(ws),
+                                 200),
              "library_ms": time_ms(lambda: planes.permute(1, 2, 0)
-                                   .contiguous()),
+                                   .contiguous(), 200),
+             "library_device_ms": lib_dev, "library_host_ms": lib_host,
              "bound_ms": 2 * planes.numel() * 4 / HBM_BYTES_PER_S * 1e3})
     min_main = minimal_check((256, 256), seed=3)
     min_ragged = minimal_check((1000, 37), seed=4)
+    min_edges = [minimal_check(shape, seed=5, offset=off, timing=False)
+                 for shape, off in (((1000, 37), 1), ((5,), 3), ((1,), 0),
+                                    ((4099,), 2))]
     log({"phase": "probe", "card": card, "probes": probes,
-         "launches": probe_counts, "minimal": [min_main, min_ragged],
+         "launches": probe_counts,
+         "minimal": [min_main, min_ragged] + min_edges,
          "seconds": time.perf_counter() - t0})
 
     # 7. Filibuster parity, small: the card against the CPU
@@ -490,6 +625,8 @@ def main() -> int:
     del boot_main
 
     # 9. kernels line, card line, result line
+    timing_keys = ("ms", "device_ms", "host_ms", "plain_ms", "library_ms",
+                   "bound_ms")
     log({"kernels": [{
         "name": "interleave", "route": "cuda",
         "source": "partisan_tpu_torch/csrc/interleave.cu",
@@ -500,23 +637,22 @@ def main() -> int:
                              "probe": probe_counts["interleave"],
                              "filibuster": fb["launches"]["interleave"]},
         "matches_plain": main_check["max_abs_err"] == 0
-        and ragged["max_abs_err"] == 0,
-        "max_abs_err": main_check["max_abs_err"],
-        "ms": main_check["ms"], "plain_ms": main_check["plain_ms"],
-        "bound_ms": main_check["bound_ms"], "bound_by": "bytes",
-        "library_ms": main_check["library_ms"],
+        and ragged["max_abs_err"] == 0
+        and all(r["max_abs_err"] == 0 for r in edges),
+        "max_abs_err": max([main_check["max_abs_err"], ragged["max_abs_err"]]
+                           + [r["max_abs_err"] for r in edges]),
+        **{k: main_check[k] for k in timing_keys}, "bound_by": "bytes",
     }, {
-        "name": "minimal", "route": "triton",
-        "source": "partisan_tpu_torch/csrc/minimal_triton.py",
+        "name": "minimal", "route": "cuda",
+        "source": "partisan_tpu_torch/csrc/minimal.cu",
         "replaces": "tools/pallas_probe.py:59",
         "launches": probe_counts["minimal"],
         "launches_by_path": {"probe": probe_counts["minimal"]},
-        "matches_plain": min_main["max_abs_err"] == 0
-        and min_ragged["max_abs_err"] == 0,
-        "max_abs_err": min_main["max_abs_err"],
-        "ms": min_main["ms"], "plain_ms": min_main["plain_ms"],
-        "bound_ms": min_main["bound_ms"], "bound_by": "bytes",
-        "library_ms": min_main["library_ms"],
+        "matches_plain": all(r["max_abs_err"] == 0
+                             for r in [min_main, min_ragged] + min_edges),
+        "max_abs_err": max(r["max_abs_err"]
+                           for r in [min_main, min_ragged] + min_edges),
+        **{k: min_main[k] for k in timing_keys}, "bound_by": "bytes",
     }]})
     print(f"chip_smoke wall {time.perf_counter() - t_all:.1f}s",
           file=sys.stderr)

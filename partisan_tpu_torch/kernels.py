@@ -1,15 +1,18 @@
-"""Build, load and count the port's hand-written kernels.
+"""Build, load, launch and count the port's hand-written kernels.
 
-- ``csrc/interleave.cu``, CUDA C++ with a plain C interface: at first use
-  it is compiled with nvcc for ``sm_90a`` into ``build/partisan_tpu_torch/``
-  at the repository root, under a name keyed by a hash of its source,
-  and loaded with ctypes.  A failed build raises.
-- ``csrc/minimal_triton.py``, a Triton kernel: imported (and with it
-  ``triton``) only by :func:`minimal_fn`, which first points Triton's
-  cache at ``build/partisan_tpu_torch/triton/``; Triton compiles it
-  there at its first launch.
+Both kernels are CUDA C++ with a plain C interface, in ``csrc/``:
+``interleave.cu`` (the plane->wire interleave) and ``minimal.cu`` (the
+probe's ``x * 2``).  At first use one nvcc call compiles both for
+``sm_90a`` into one shared library under ``build/partisan_tpu_torch/`` at
+the repository root, named by a hash of both sources and the flags, and
+ctypes loads it once, with every entry point's argument types set then.
+A failed build raises.  The compiler's report (``-Xptxas -v``: registers,
+shared memory and spills per kernel) is kept beside the library as
+``<name>.log``.
 
-``launches`` counts, per kernel, the launches its wrapper made — the
+:func:`launch` is the one launch path of both wrappers: it calls a C
+launch function on the current stream of the tensors' device, raises on
+the CUDA error it returns, and counts the launch in ``launches`` — the
 evidence that a run went through the kernel.
 """
 
@@ -22,13 +25,25 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG.parent / "build" / "partisan_tpu_torch"
-TRITON_CACHE = BUILD_DIR / "triton"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# kernel name -> argument types of its C launch function ``<name>_launch``
+# in ``csrc/<name>.cu``, without the stream that every launch takes last
+_SIGNATURES = {
+    # plane pointer array, size code, W, records, out
+    "interleave": (ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int,
+                   ctypes.c_longlong, ctypes.c_void_p),
+    # x, out, elements
+    "minimal": (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong),
+}
 
 launches = {"interleave": 0, "minimal": 0}
-_fn = None
-_minimal = None
+_entry: dict = {}
 
 
 def reset_launches() -> None:
@@ -36,14 +51,16 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
-def source() -> Path:
-    return _PKG / "csrc" / "interleave.cu"
+def sources() -> list:
+    return [_PKG / "csrc" / f"{name}.cu" for name in _SIGNATURES]
 
 
 def lib_path() -> Path:
-    src = source()
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"{src.stem}_{digest}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"partisan_kernels_{h.hexdigest()[:16]}.so"
 
 
 def _nvcc() -> str:
@@ -57,44 +74,55 @@ def _nvcc() -> str:
                        "build partisan_tpu_torch's kernels")
 
 
+def nvcc_command(out: Path) -> list:
+    """The one nvcc call that builds every kernel source into ``out``."""
+    return [_nvcc(), *NVCC_FLAGS, "-o", str(out),
+            *[str(s) for s in sources()]]
+
+
 def build() -> bool:
-    """Compile the kernel unless it is built; True if it compiled now."""
+    """Compile the library unless it is built; True if it compiled now."""
     out = lib_path()
     if out.exists():
         return False
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-           "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-           "-o", str(tmp), str(source())]
-    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+    proc = subprocess.run(nvcc_command(tmp), stdout=subprocess.PIPE,
                           stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"kernel build failed: nvcc exit "
                            f"{proc.returncode}\n{proc.stdout}")
+    out.with_suffix(".log").write_text(proc.stdout)
     os.replace(tmp, out)
     return True
 
 
-def interleave_fn():
-    """The loaded C entry point ``interleave_launch`` (built on demand)."""
-    global _fn
-    if _fn is None:
+def _load() -> dict:
+    """Build if needed, load the library once and type its entry points."""
+    if not _entry:
         build()
-        fn = ctypes.CDLL(str(lib_path())).interleave_launch
-        fn.argtypes = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p)
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        # PyDLL keeps the interpreter lock across the call: the launch
+        # functions only enqueue work, and releasing and retaking the lock
+        # would cost about as much as the ctypes call itself
+        lib = ctypes.PyDLL(str(lib_path()))
+        for name, args in _SIGNATURES.items():
+            fn = getattr(lib, f"{name}_launch")
+            fn.argtypes = (*args, ctypes.c_void_p)
+            fn.restype = ctypes.c_int
+            _entry[name] = fn
+    return _entry
 
 
-def minimal_fn():
-    """The Triton kernel ``double_kernel`` of ``csrc/minimal_triton.py``;
-    its import brings in ``triton`` (absent where there is no card)."""
-    global _minimal
-    if _minimal is None:
-        os.environ["TRITON_CACHE_DIR"] = str(TRITON_CACHE)
-        from partisan_tpu_torch.csrc import minimal_triton
-        _minimal = minimal_triton.double_kernel
-    return _minimal
+def launch(name: str, index: int, *args) -> None:
+    """Launch kernel ``name`` with ``args`` on the current stream of CUDA
+    device ``index`` (entering a device guard only when that is not the
+    current device), raise on a CUDA error, and count the launch."""
+    fn = (_entry or _load())[name]
+    if index == torch._C._cuda_getDevice():
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    launches[name] += 1

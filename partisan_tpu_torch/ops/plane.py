@@ -18,14 +18,18 @@ it runs :func:`interleave_plain`, the plain PyTorch version the tests
 hold against the reference.  The kernel is bound by bytes: each record
 reads its planes' storage bytes once and writes ``4 * W`` bytes
 (at the main path's capture shape, 53 B in and 64 B out per record).
-Design: a tile of 256 records is staged plane by plane in shared memory
-(coalesced narrow reads), then written as one contiguous run of 16-byte
-stores; see the source's header.
+Design: a persistent grid walks tiles of 512 records; each plane's run
+of a tile arrives by one bulk async copy into a 3-stage ring in shared
+memory, so the next tiles load while one is transposed and written as
+coalesced 16-byte stores; see the source's header.  The host path is
+lean: :func:`interleave_args` checks the planes and looks up their size
+code by dtypes, the plane pointers travel as one packed bytes object, and
+:func:`partisan_tpu_torch.kernels.launch` makes one ctypes call.
 """
 
 from __future__ import annotations
 
-import ctypes
+import struct
 from typing import Sequence
 
 import torch
@@ -147,7 +151,11 @@ def scatter_rows(p: Planes, idx: torch.Tensor, src: Planes) -> Planes:
 # The plane->wire interleave
 # ---------------------------------------------------------------------------
 
-_ELEM_BYTES = {torch.int8: 1, torch.int16: 2, torch.int32: 4}
+MAX_PLANES = 32
+_SIZE_LOG2 = {torch.int8: 0, torch.int16: 1, torch.int32: 2}
+# dtypes of the planes -> (size code, packer of the plane pointers); the
+# wire dtypes are fixed per Config, so a run meets a handful of keys
+_PLANS: dict = {}
 
 
 def interleave_plain(ws: Sequence[torch.Tensor], out=None) -> torch.Tensor:
@@ -164,51 +172,72 @@ def interleave(p, out=None) -> torch.Tensor:
     given.  CPU planes take the plain version; CUDA planes go through the
     kernel (or raise)."""
     ws = tuple(p)
-    dev = ws[0].device
-    if any(w.device != dev for w in ws):
-        raise ValueError("interleave: planes on different devices")
-    if dev.type == "cpu":
-        return interleave_plain(ws, out=out)
-    if dev.type != "cuda":
-        raise ValueError(f"interleave: unsupported device {dev}")
-    return interleave_cuda(ws, out=out)
+    if ws[0].is_cuda:
+        return interleave_cuda(ws, out=out)
+    if any(w.device.type != "cpu" for w in ws):
+        raise ValueError("interleave: planes must all lie on the CPU or "
+                         f"all on one CUDA device, got {ws[0].device} first")
+    return interleave_plain(ws, out=out)
+
+
+def size_plan(dtypes: tuple) -> tuple:
+    """``(size code, pointer packer)`` for planes of ``dtypes``: the code
+    holds 2 bits per plane, log2 of its element size, plane 0 in the
+    lowest bits; the packer is a ``struct.Struct`` of W native pointers.
+    Raises ``TypeError`` on a dtype the kernel does not take."""
+    plan = _PLANS.get(dtypes)
+    if plan is None:
+        code = 0
+        for i, dt in enumerate(dtypes):
+            if dt not in _SIZE_LOG2:
+                raise TypeError(f"interleave kernel: unsupported dtype {dt}")
+            code |= _SIZE_LOG2[dt] << (2 * i)
+        plan = _PLANS[dtypes] = (code, struct.Struct(f"{len(dtypes)}P"))
+    return plan
+
+
+def interleave_args(ws: Sequence[torch.Tensor], out=None) -> tuple:
+    """Check planes (and ``out``) for the kernel and return ``(records,
+    size code, pointer packer)``.  Planes must share one device and one
+    shape and be contiguous; ``out``, when given, must be a contiguous
+    int32 ``[..., W]`` tensor on their device.  Anything else raises
+    ``ValueError`` (or ``TypeError`` for a plane dtype)."""
+    W = len(ws)
+    if not 1 <= W <= MAX_PLANES:
+        raise ValueError(f"interleave kernel takes 1..{MAX_PLANES} planes, "
+                         f"got {W}")
+    w0 = ws[0]
+    shape, dev = w0.shape, w0.device
+    dtypes = []
+    for w in ws:
+        if w.shape != shape or w.device != dev:
+            raise ValueError("interleave kernel: planes must share one "
+                             "device and one shape")
+        if not w.is_contiguous():
+            raise ValueError("interleave kernel: planes must be contiguous")
+        dtypes.append(w.dtype)
+    code, packer = size_plan(tuple(dtypes))
+    if out is not None and (
+            out.dtype != torch.int32 or out.device != dev
+            or out.shape != shape + (W,) or not out.is_contiguous()):
+        raise ValueError("interleave kernel: out must be a contiguous "
+                         f"int32 tensor of shape {tuple(shape) + (W,)} on "
+                         f"{dev}")
+    return w0.numel(), code, packer
 
 
 def interleave_cuda(ws: Sequence[torch.Tensor], out=None) -> torch.Tensor:
     """Launch ``csrc/interleave.cu`` on CUDA planes, into ``out`` (a
     contiguous int32 ``[..., W]`` tensor) or a new tensor."""
-    W = len(ws)
-    shape = tuple(ws[0].shape)
-    if not 1 <= W <= 32:
-        raise ValueError(f"interleave kernel takes 1..32 planes, got {W}")
-    for w in ws:
-        if w.device.type != "cuda" or tuple(w.shape) != shape:
-            raise ValueError("interleave kernel: planes must share one "
-                             "CUDA device and one shape")
-        if w.dtype not in _ELEM_BYTES:
-            raise TypeError(f"interleave kernel: unsupported dtype {w.dtype}")
-        if not w.is_contiguous():
-            raise ValueError("interleave kernel: planes must be contiguous")
-    dev = ws[0].device
+    m, code, packer = interleave_args(ws, out)
+    w0 = ws[0]
+    if not w0.is_cuda:
+        raise ValueError(f"interleave kernel: planes on {w0.device}, not "
+                         "a CUDA device")
     if out is None:
-        out = torch.empty(shape + (W,), dtype=torch.int32, device=dev)
-    elif (out.dtype != torch.int32 or out.device != dev
-          or tuple(out.shape) != shape + (W,) or not out.is_contiguous()):
-        raise ValueError("interleave kernel: out must be a contiguous "
-                         f"int32 tensor of shape {shape + (W,)} on {dev}")
-    m = out.numel() // W
-    if m == 0:
-        return out
-    fn = kernels.interleave_fn()
-    ptrs = (ctypes.c_void_p * W)(*[w.data_ptr() for w in ws])
-    sizes = (ctypes.c_int * W)(*[_ELEM_BYTES[w.dtype] for w in ws])
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(ctypes.cast(ptrs, ctypes.c_void_p),
-                ctypes.cast(sizes, ctypes.c_void_p), W, m,
-                out.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"interleave kernel launch failed: CUDA error "
-                           f"{rc}")
-    kernels.launches["interleave"] += 1
+        out = w0.new_empty((*w0.shape, len(ws)), dtype=torch.int32)
+    if m:
+        kernels.launch("interleave", w0.get_device(),
+                       packer.pack(*[w.data_ptr() for w in ws]), code,
+                       len(ws), m, out.data_ptr())
     return out

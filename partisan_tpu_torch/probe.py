@@ -3,7 +3,7 @@
 Two probes, each printed as one JSON line, then a verdict line:
 
 - ``probe_minimal``: ``int32[256, 256]`` ones times 2 through the minimal
-  kernel (Triton, ``csrc/minimal_triton.py``, on the card);
+  kernel (CUDA, ``csrc/minimal.cu``, on the card);
 - ``probe_interleave(n)``: ``int32`` word planes ``[16, n, 16]``
   (arange) through the plane->wire interleave (CUDA,
   ``csrc/interleave.cu``, on the card), held against
@@ -35,7 +35,6 @@ from partisan_tpu_torch.ops import plane as plane_ops
 
 S = 16            # wire slots per node
 W = 16            # int32 words per message
-MINIMAL_BLOCK = 1024
 
 
 def minimal_plain(x: torch.Tensor) -> torch.Tensor:
@@ -44,29 +43,26 @@ def minimal_plain(x: torch.Tensor) -> torch.Tensor:
 
 
 def minimal(x: torch.Tensor) -> torch.Tensor:
-    """``x * 2``: the plain version for a CPU tensor, the Triton kernel
-    for a CUDA tensor."""
-    if x.device.type == "cpu":
-        return minimal_plain(x)
-    if x.device.type != "cuda":
+    """``x * 2``: the plain version for a CPU tensor, the CUDA kernel for
+    a CUDA tensor."""
+    if x.is_cuda:
+        return minimal_cuda(x)
+    if x.device.type != "cpu":
         raise ValueError(f"minimal: unsupported device {x.device}")
-    return minimal_triton(x)
+    return minimal_plain(x)
 
 
-def minimal_triton(x: torch.Tensor) -> torch.Tensor:
-    """Launch the Triton minimal kernel on a contiguous int32 CUDA
-    tensor into a new tensor."""
-    if x.device.type != "cuda" or x.dtype != torch.int32 \
-            or not x.is_contiguous():
+def minimal_cuda(x: torch.Tensor) -> torch.Tensor:
+    """Launch ``csrc/minimal.cu`` on a contiguous int32 CUDA tensor into a
+    new tensor."""
+    if not x.is_cuda or x.dtype != torch.int32 or not x.is_contiguous():
         raise ValueError("minimal kernel: needs a contiguous int32 CUDA "
                          f"tensor, got {x.dtype} on {x.device}")
     out = torch.empty_like(x)
     n = x.numel()
     if n:
-        fn = kernels.minimal_fn()
-        with torch.cuda.device(x.device):
-            fn[(-(-n // MINIMAL_BLOCK),)](x, out, n, BLOCK=MINIMAL_BLOCK)
-        kernels.launches["minimal"] += 1
+        kernels.launch("minimal", x.get_device(), x.data_ptr(),
+                       out.data_ptr(), n)
     return out
 
 

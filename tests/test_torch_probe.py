@@ -1,7 +1,7 @@
 """The port's kernel-toolchain probe (partisan_tpu_torch/probe.py) against
 the reference's Pallas kernels (tools/pallas_probe.py) run in interpret
 mode on the CPU, bit for bit: the minimal kernel (``x * 2``) and the
-interleave on int32 planes.  Inputs come from numpy seeds.  The Triton
+interleave on int32 planes.  Inputs come from numpy seeds.  The CUDA
 minimal kernel itself runs only on the card
 (tests/test_torch_kernels.py, ``-m gpu``)."""
 
@@ -70,7 +70,7 @@ def test_minimal_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):
         probe.minimal(torch.ones(4, dtype=torch.int32, device="meta"))
     with pytest.raises(ValueError):   # the kernel takes CUDA int32 only
-        probe.minimal_triton(torch.ones(4, dtype=torch.int32))
+        probe.minimal_cuda(torch.ones(4, dtype=torch.int32))
     assert kernels.launches["minimal"] == before
 
 
