@@ -50,7 +50,22 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    assertion coverage 1.0); counts reset just before and read just
    after, and the interleave must have launched horizon times per
    record call;
-9. the kernels line, the card line, and last the result line
+9. scenario parity, small: the scenario suite's configs 1-4 and
+   hyparview_views on the card and on the CPU (config 1 at n=16,
+   configs 2 and 3 at n=128, config 4 at n=128 with rounds=40,
+   hyparview_views at n=128): every returned field identical except
+   rounds_per_sec; then config 3 at n=128 with the health plane on
+   (snapshots every K_PROG rounds): the digest-polled convergence round
+   equals the coverage-polled one, and the final health ring and every
+   other state leaf are identical on card and CPU;
+10. the scenario suite at the reference's default sizes on the card:
+   config 1 at n=16, config 2 at n=1000, config 3 at n=10000, config 4
+   at n=10000 (rounds=120) and hyparview_views at n=1000, each config's
+   JSON line with its wall seconds split into boot and the rest; config
+   3 must meet its repair-round bound, config 4 its in_band, and
+   hyparview_views must report one component.  Kernel counts are reset
+   just before and read just after (these paths launch neither kernel);
+11. the kernels line, the card line, and last the result line
    {"ok": true, "device": {...}}.
 """
 
@@ -466,6 +481,131 @@ def filibuster_full(boot_state) -> dict:
             if dev.type == "cuda" else None}
 
 
+SCENARIO_SMALL = {"config1": ("config1_anti_entropy", dict(n=16)),
+                  "config2": ("config2_rumor", dict(n=128)),
+                  "config3": ("config3_plumtree_drop", dict(n=128)),
+                  "config4": ("config4_scamp_churn", dict(n=128, rounds=40)),
+                  "hyparview_views": ("hyparview_views", dict(n=128))}
+SCENARIO_FULL = {"config1": ("config1_anti_entropy", dict(n=16)),
+                 "config2": ("config2_rumor", dict(n=1000)),
+                 "config3": ("config3_plumtree_drop", dict(n=10_000)),
+                 "config4": ("config4_scamp_churn",
+                             dict(n=10_000, rounds=120)),
+                 "hyparview_views": ("hyparview_views", dict(n=1000))}
+
+
+def run_scenario(name: str, kwargs: dict, device=None) -> tuple:
+    """One scenario function of partisan_tpu_torch.scenarios, with its
+    wall seconds split into the bootstrap (the scenario's
+    ``_boot_fullmesh`` / ``_boot_overlay`` calls, each ended by a
+    synchronize) and the rest."""
+    from partisan_tpu_torch import scenarios as sc
+
+    boot = [0.0]
+    originals = {k: getattr(sc, k) for k in ("_boot_fullmesh",
+                                              "_boot_overlay")}
+
+    def timed(orig):
+        def boot_fn(*a, **kw):
+            t0 = time.perf_counter()
+            st = orig(*a, **kw)
+            sc._sync(st)
+            boot[0] += time.perf_counter() - t0
+            return st
+        return boot_fn
+
+    for k, fn in originals.items():
+        setattr(sc, k, timed(fn))
+    try:
+        t0 = time.perf_counter()
+        res = getattr(sc, name)(device=device, **kwargs)
+        wall = time.perf_counter() - t0
+    finally:
+        for k, fn in originals.items():
+            setattr(sc, k, fn)
+    return res, {"wall_s": wall, "boot_s": boot[0],
+                 "rest_s": wall - boot[0]}
+
+
+def strip_rate(d: dict) -> dict:
+    return {k: v for k, v in d.items() if k != "rounds_per_sec"}
+
+
+def health_convergence(device: str, n: int):
+    """Config 3 at ``n`` with the health plane on (snapshots every
+    K_PROG rounds): the same booted state driven to convergence twice,
+    polling the digest and polling coverage.  Returns both rounds and
+    the digest-polled final state."""
+    from partisan_tpu_torch import faults, scenarios as sc
+    from partisan_tpu_torch.cluster import Cluster
+    from partisan_tpu_torch.config import Config
+    from partisan_tpu_torch.models.plumtree import Plumtree
+
+    cfg = Config(n_nodes=n, seed=3, peer_service_manager="hyparview",
+                 msg_words=16, partition_mode="groups", health=sc.K_PROG,
+                 health_ring=512)
+    model = Plumtree()
+    cl = Cluster(cfg, model=model, device=device)
+    st = sc._boot_overlay(cl, n)
+    st = st._replace(faults=faults.set_link_drop(st.faults, 0.05))
+    start = int(st.rnd)
+    st = st._replace(model=model.broadcast(st.model, 0, 0, start))
+
+    def cov(s):
+        return model.coverage(s.model, s.faults.alive, 0)
+
+    st_d, r_d = sc._converge(cl, st, cov, 400, use_digest=True)
+    _, r_c = sc._converge(cl, st, cov, 400, use_digest=False)
+    return r_d, r_c, st_d
+
+
+def scenario_parity() -> dict:
+    """Phase 9: the scenario functions at small n, card against CPU."""
+    from partisan_tpu_torch import health
+
+    out = {}
+    for label, (name, kw) in SCENARIO_SMALL.items():
+        g, g_t = run_scenario(name, kw, device="cuda")
+        c, c_t = run_scenario(name, kw, device="cpu")
+        if strip_rate(g) != strip_rate(c):
+            raise AssertionError(f"{label}: card {g} != CPU {c}")
+        out[label] = {"result": g, "card_wall_s": g_t["wall_s"],
+                      "cpu_wall_s": c_t["wall_s"]}
+    g_d, g_c, g_st = health_convergence("cuda", 128)
+    c_d, c_c, c_st = health_convergence("cpu", 128)
+    if not g_d == g_c == c_d == c_c or g_d < 0:
+        raise AssertionError(f"health convergence: card digest {g_d} / "
+                             f"coverage {g_c}, CPU {c_d} / {c_c}")
+    n_leaves = assert_identical(g_st, c_st, "config 3 n=128 with health")
+    snap = health.snapshot(g_st.health)
+    out["config3_health"] = {
+        "converged_round": g_d, "leaves": n_leaves,
+        "snapshots": len(snap["rounds"]),
+        "last_digest": health.decode_digest(snap["digests"][-1])}
+    return out
+
+
+def scenario_suite(card: str) -> list:
+    """Phase 10: the suite at the reference's default sizes on the card,
+    with each config's band."""
+    out = []
+    for label, (name, kw) in SCENARIO_FULL.items():
+        res, t = run_scenario(name, kw)
+        row = {"phase": "scenario", "label": label, "card": card, **t,
+               "result": res}
+        log(row)
+        if label == "config3" and not (
+                0 <= res["repair_rounds"]
+                <= res["expected_max_repair_rounds"]):
+            raise AssertionError(f"config 3 outside its band: {res}")
+        if label == "config4" and not res["in_band"]:
+            raise AssertionError(f"config 4 outside its band: {res}")
+        if label == "hyparview_views" and res["components"] != 1:
+            raise AssertionError(f"hyparview_views: {res}")
+        out.append(row)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -624,7 +764,22 @@ def main() -> int:
     log({"phase": "filibuster_full", "card": card, **fb})
     del boot_main
 
-    # 9. kernels line, card line, result line
+    # 9. scenario parity, small: card against CPU
+    t0 = time.perf_counter()
+    par = scenario_parity()
+    log({"phase": "scenario_parity", **par,
+         "seconds": time.perf_counter() - t0})
+
+    # 10. the scenario suite at the default sizes, counts reset just before
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    suite = scenario_suite(card)
+    suite_counts = dict(kernels.launches)
+    log({"phase": "scenario_suite", "card": card, "launches": suite_counts,
+         "seconds": time.perf_counter() - t0,
+         "wall_s": {r["label"]: r["wall_s"] for r in suite}})
+
+    # 11. kernels line, card line, result line
     timing_keys = ("ms", "device_ms", "host_ms", "plain_ms", "library_ms",
                    "bound_ms")
     log({"kernels": [{
@@ -632,10 +787,11 @@ def main() -> int:
         "source": "partisan_tpu_torch/csrc/interleave.cu",
         "replaces": "tools/pallas_probe.py:54",
         "launches": counts["interleave"] + probe_counts["interleave"]
-        + fb["launches"]["interleave"],
+        + fb["launches"]["interleave"] + suite_counts["interleave"],
         "launches_by_path": {"bench_record": counts["interleave"],
                              "probe": probe_counts["interleave"],
-                             "filibuster": fb["launches"]["interleave"]},
+                             "filibuster": fb["launches"]["interleave"],
+                             "scenarios": suite_counts["interleave"]},
         "matches_plain": main_check["max_abs_err"] == 0
         and ragged["max_abs_err"] == 0
         and all(r["max_abs_err"] == 0 for r in edges),
@@ -646,8 +802,9 @@ def main() -> int:
         "name": "minimal", "route": "cuda",
         "source": "partisan_tpu_torch/csrc/minimal.cu",
         "replaces": "tools/pallas_probe.py:59",
-        "launches": probe_counts["minimal"],
-        "launches_by_path": {"probe": probe_counts["minimal"]},
+        "launches": probe_counts["minimal"] + suite_counts["minimal"],
+        "launches_by_path": {"probe": probe_counts["minimal"],
+                             "scenarios": suite_counts["minimal"]},
         "matches_plain": all(r["max_abs_err"] == 0
                              for r in [min_main, min_ragged] + min_edges),
         "max_abs_err": max(r["max_abs_err"]

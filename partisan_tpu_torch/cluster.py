@@ -4,8 +4,9 @@
 One round advances the whole cluster ``round_ms`` of virtual time:
 per-node round keys, the manager transition, the model transition, the
 delivery layer's send path (the ack lane), the wire stage and the
-exchange into next round's inboxes, then the stats.  The wire stage has
-the reference's two arms:
+exchange into next round's inboxes, then the stats and, every
+``Config.health`` rounds, the health plane's topology snapshot.  The
+wire stage has the reference's two arms:
 
 - the FAST arm (``step``/``steps`` with no interposition and groups
   partitions): compaction first, one packed destination-facts gather,
@@ -32,6 +33,7 @@ import torch
 from partisan_tpu_torch import delivery as delivery_mod
 from partisan_tpu_torch import device as device_mod
 from partisan_tpu_torch import faults as faults_mod
+from partisan_tpu_torch import health as health_mod
 from partisan_tpu_torch import interpose as interpose_mod
 from partisan_tpu_torch import managers as managers_mod
 from partisan_tpu_torch.comm import LocalComm
@@ -106,6 +108,7 @@ def round_body(cfg: Config, manager: Any, model: Any, comm: LocalComm,
                    seed=seed)
 
     mstate, m_emit = manager.step(cfg, comm, state.manager, ctx)
+    nbrs = None
     if model is not None:
         nbrs = manager.neighbors(cfg, mstate, comm)
         dstate_model, a_emit = model.step(cfg, comm, state.model, ctx, nbrs)
@@ -208,10 +211,25 @@ def round_body(cfg: Config, manager: Any, model: Any, comm: LocalComm,
         emitted=state.stats.emitted + n_emitted,
         delivered=state.stats.delivered + ev_delivered,
         dropped=state.stats.dropped + (n_emitted - ev_delivered))
+    hstate = state.health
+    if health_mod.enabled(cfg) and bool((state.rnd + 1) % cfg.health == 0):
+        # topology snapshot on the post-transition state every
+        # cfg.health rounds (one host read of the round gate)
+        if nbrs is None:
+            nbrs = manager.neighbors(cfg, mstate, comm)
+        cov_ok = True
+        if model is not None and hasattr(model, "coverage"):
+            n_al = alive_local.sum()
+            cov_ok = (n_al > 0) & (
+                model.coverage(dstate_model, alive_local, 0) >= 1.0)
+        hstate = health_mod.record_snapshot(
+            cfg, comm, state.health, rnd=state.rnd, nbrs=nbrs,
+            alive=faults_wire.alive, cov_ok=cov_ok,
+            partition=state.faults.partition)
     out = ClusterState(rnd=state.rnd + 1, faults=state.faults, inbox=inbox,
                        manager=mstate, model=dstate_model,
                        delivery=dstate, stats=stats, interpose=istate,
-                       n_active=n_act)
+                       n_active=n_act, health=hstate)
     if capture:
         return out, trace
     return out
@@ -295,6 +313,8 @@ class Cluster:
             n_active=(torch.tensor(cfg.n_nodes, dtype=torch.int32,
                                    device=dev)
                       if cfg.width_operand else ()),
+            health=(health_mod.init(cfg, device=dev)
+                    if health_mod.enabled(cfg) else ()),
         )
 
     def step(self, state: ClusterState) -> ClusterState:

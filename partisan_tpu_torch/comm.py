@@ -3,7 +3,8 @@
 ``LocalComm`` gives managers and models the two batched primitives they
 program against — ``route`` (event records into inboxes) and
 ``push_max`` (monotonic state merge) — with every node on one device.
-The cross-shard reductions are identities here.
+The cross-shard reductions (``allsum``, ``allmax``, ``allmin``,
+``gather_vec``) are identities here.
 """
 
 from __future__ import annotations
@@ -44,6 +45,13 @@ class LocalComm:
         return gossip.push_or(rows, dst, n_out=self.n_global)
 
     def allsum(self, x):
+        return x
+
+    def allmax(self, x):
+        return x
+
+    def allmin(self, x):
+        """Elementwise on arrays (the health plane's label proposals)."""
         return x
 
     def gather_vec(self, x):

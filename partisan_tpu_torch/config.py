@@ -2,13 +2,14 @@
 
 The fields are the reference's, by name and default, for everything this
 slice reads or refuses, so bench.py's ``Config(...)`` call builds the
-same configuration here.  The port runs the full-mesh and HyParView
-managers on the plane-major wire, with groups or dense partitions, the
-send-path delay keys and the ack lane of the delivery layer, and every
-observability plane off; every option it does not port raises
-``NotImplementedError`` at construction instead of being silently
-ignored.  ``superstep`` is a loop fold with no effect on results, so it
-is accepted.
+same configuration here.  The port runs the full-mesh, HyParView,
+SCAMP v1/v2, static and client-server managers on the plane-major
+wire, with groups or dense partitions, the send-path delay keys, the
+ack lane of the delivery layer and the health plane; every other
+observability plane is off, and every option the port does not carry
+raises ``NotImplementedError`` at construction instead of being
+silently ignored.  ``superstep`` is a loop fold with no effect on
+results, so it is accepted.
 """
 
 from __future__ import annotations
@@ -75,10 +76,23 @@ class PlumtreeConfig:
     exchange_limit: int = 1
 
 
-# Options whose planes or paths this slice does not port, with the value
+@dataclasses.dataclass(frozen=True)
+class ScampConfig:
+    """SCAMP parameters (include/partisan.hrl:240-241)."""
+
+    c: int = 5                    # extra subscription copies on join
+    message_window: int = 10      # missed-ping isolation window (v2)
+    partial_max: int = 64         # capacity of partial (out) view arrays
+    in_max: int = 64              # capacity of in-view arrays (v2)
+
+
+MANAGERS = ("fullmesh", "hyparview", "scamp_v1", "scamp_v2",
+            "client_server", "static")
+
+# Options whose planes or paths the port does not carry, with the value
 # that keeps them off.  Setting any other value raises.
 _OFF = {
-    "metrics": False, "latency": False, "flight_rounds": 0, "health": 0,
+    "metrics": False, "latency": False, "flight_rounds": 0,
     "provenance": False, "elastic": False, "salt_operand": False,
     "channel_capacity": False, "causal_labels": (),
     "causal_p2p_labels": (), "plane_major": True,
@@ -94,6 +108,8 @@ class Config:
 
     n_nodes: int = 16
     peer_service_manager: str = "fullmesh"
+    membership_strategy: str = "full"
+    cs_servers: int = 1
     round_ms: int = 1_000
     periodic_interval_ms: int = 10_000
     retransmit_interval_ms: int = 1_000
@@ -108,6 +124,7 @@ class Config:
     causal_p2p_labels: tuple = ()
     channels: tuple = DEFAULT_CHANNELS
     hyparview: HyParViewConfig = HyParViewConfig()
+    scamp: ScampConfig = ScampConfig()
     plumtree: PlumtreeConfig = PlumtreeConfig()
     distance: Any = None
     control: Any = None
@@ -154,6 +171,13 @@ class Config:
             raise ValueError(
                 f"partition_mode {self.partition_mode!r} not in "
                 f"('auto', 'dense', 'groups')")
+        if self.health < 0:
+            raise ValueError(
+                f"health must be >= 0 (a snapshot cadence in rounds; "
+                f"0 = off), got {self.health}")
+        if self.health_ring < 1:
+            raise ValueError(
+                f"health_ring must be >= 1, got {self.health_ring}")
         for key, off in _OFF.items():
             if getattr(self, key) != off:
                 raise NotImplementedError(
@@ -163,10 +187,10 @@ class Config:
             if getattr(self, key) is not None:
                 raise NotImplementedError(
                     f"Config.{key} is not ported to partisan_tpu_torch yet")
-        if self.peer_service_manager not in ("fullmesh", "hyparview"):
+        if self.peer_service_manager not in MANAGERS:
             raise NotImplementedError(
                 f"peer_service_manager={self.peer_service_manager!r}: "
-                "only 'fullmesh' and 'hyparview' are ported")
+                f"only {MANAGERS} are ported")
         if self.hyparview.xbot:
             raise NotImplementedError("HyParView X-BOT is not ported yet")
 

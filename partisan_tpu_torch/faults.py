@@ -170,12 +170,46 @@ def wire_cut_from_info(faults: FaultState, info_d: torch.Tensor,
     return valid & (cut | drop)
 
 
+# --- churn engine (the scenario suite's config 4) -----------------------
+
+_CHURN_DEATH_TAG = 31
+_CHURN_BIRTH_TAG = 32
+
+
+def churn_step(faults: FaultState, seed: int, rnd: torch.Tensor, death_p,
+               birth_p) -> FaultState:
+    """One round of a birth/death process over the alive mask: each
+    alive node crash-stops with probability ``death_p``, each dead node
+    revives with probability ``birth_p``, decided by the counter hash of
+    (seed, round, node)."""
+    n = faults.alive.shape[0]
+    dev = faults.alive.device
+    ids = torch.arange(n, dtype=torch.int32, device=dev)
+
+    def p(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+    die = hash_bernoulli(edge_hash(seed, rnd, _CHURN_DEATH_TAG, ids, ids),
+                         p(death_p))
+    born = hash_bernoulli(edge_hash(seed, rnd, _CHURN_BIRTH_TAG, ids, ids),
+                          p(birth_p))
+    return faults._replace(alive=torch.where(faults.alive, ~die, born))
+
+
 # --- scenario scripting (host-side, between steps) ----------------------
 
-def crash(faults: FaultState, node: int) -> FaultState:
+def _set_alive(faults: FaultState, node: int, value: bool) -> FaultState:
     alive = faults.alive.clone()
-    alive[node] = False
+    alive[node] = value
     return faults._replace(alive=alive)
+
+
+def crash(faults: FaultState, node: int) -> FaultState:
+    return _set_alive(faults, node, False)
+
+
+def recover(faults: FaultState, node: int) -> FaultState:
+    return _set_alive(faults, node, True)
 
 
 def crash_many(faults: FaultState, nodes) -> FaultState:

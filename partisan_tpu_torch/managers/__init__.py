@@ -1,5 +1,5 @@
-"""Peer-service managers (port of ``partisan_tpu/managers``): full mesh
-and HyParView."""
+"""Peer-service managers (port of ``partisan_tpu/managers``): full mesh,
+HyParView, SCAMP v1/v2, client-server and static."""
 
 
 def get(name: str):
@@ -10,14 +10,25 @@ def get(name: str):
     if name == "hyparview":
         from partisan_tpu_torch.managers import hyparview
         return hyparview.HyParView()
-    raise NotImplementedError(f"manager {name!r} is not ported")
+    if name in ("scamp_v1", "scamp_v2"):
+        from partisan_tpu_torch.managers import scamp
+        return scamp.Scamp(version=int(name[-1]))
+    if name == "client_server":
+        from partisan_tpu_torch.managers import client_server
+        return client_server.ClientServer()
+    if name == "static":
+        from partisan_tpu_torch.managers import static
+        return static.Static()
+    raise KeyError(
+        f"unknown peer_service_manager {name!r}: fullmesh|hyparview|"
+        f"scamp_v1|scamp_v2|client_server|static")
 
 
 def neighbor_width(cfg) -> int:
     """Static width K of the manager's ``neighbors`` arrays."""
-    if cfg.peer_service_manager == "hyparview":
+    name = cfg.peer_service_manager
+    if name == "hyparview":
         return cfg.hyparview.active_max
-    if cfg.peer_service_manager == "fullmesh":
-        return cfg.n_nodes
-    raise NotImplementedError(
-        f"manager {cfg.peer_service_manager!r} is not ported")
+    if name in ("scamp_v1", "scamp_v2"):
+        return cfg.scamp.partial_max
+    return cfg.n_nodes  # fullmesh / client_server / static: dense rows

@@ -101,6 +101,14 @@ def stack_words(p: Planes, lo: int = 0, hi: int | None = None
     return torch.stack([w.to(torch.int32) for w in ws], dim=-1)
 
 
+def stack_records(blocks: Sequence[Planes], dim: int = 0) -> Planes:
+    """``torch.stack`` over whole records (a new record axis, not the
+    word axis)."""
+    blocks = list(blocks)
+    return Planes(torch.stack([b[i] for b in blocks], dim=dim)
+                  for i in range(len(blocks[0])))
+
+
 def take_along(p: Planes, idx: torch.Tensor, dim: int) -> Planes:
     """Per-plane ``take_along_axis`` over a record axis."""
     return Planes(torch.gather(w, dim, idx) for w in p)

@@ -10,7 +10,11 @@ bit for bit:
   ``random_bits``.  Keys are int64 tensors ``[..., 2]`` holding the two
   uint32 key words.
 
-``choice_slots`` reproduces ``jax.random.gumbel`` + ``lax.top_k``.  The
+``split2``, ``uniform`` and ``randint`` reproduce ``jax.random.split``
+(the fold-like split of partitionable threefry: key j of a split is
+``fold_in(key, j)``), scalar ``jax.random.uniform`` and scalar int32
+``jax.random.randint`` per key.  ``choice_slots`` reproduces
+``jax.random.gumbel`` + ``lax.top_k``.  The
 gumbel transform ``-log(-log(u))`` of ``u = mantissa(bits >> 9)`` is
 strictly increasing over all 2**23 mantissas in float32 (checked against
 the reference in tests/test_torch_ops.py), so ranking by the integer
@@ -98,6 +102,36 @@ def random_bits(keys: torch.Tensor, v: int) -> torch.Tensor:
     b1, b2 = threefry2x32(keys[..., 0, None], keys[..., 1, None],
                           torch.zeros_like(lo), lo)
     return b1 ^ b2
+
+
+def split2(keys: torch.Tensor) -> torch.Tensor:
+    """``jax.random.split(key)`` per key: int64[..., 2, 2] (the two
+    subkeys on the second-to-last axis)."""
+    j = torch.arange(2, dtype=torch.int64, device=keys.device)
+    return fold_in(keys[..., None, :], j)
+
+
+def uniform(keys: torch.Tensor) -> torch.Tensor:
+    """Scalar float32 ``jax.random.uniform`` per key: the 23 high bits
+    as a mantissa in [1, 2), minus 1 — exactly ``mant * 2**-23``."""
+    return (random_bits(keys, 1)[..., 0] >> 9).to(torch.float32) \
+        * (2.0 ** -23)
+
+
+def randint(keys: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """Scalar int32 ``jax.random.randint(key, (), lo, hi)`` per key."""
+    return randint_bits(random_bits(split2(keys), 1)[..., 0], lo, hi)
+
+
+def randint_bits(b: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """``randint`` from its two draws ``b[..., 0:2]`` (the 32-bit bits of
+    the split key's two halves), combined as ``(hi_bits % span * mult +
+    lo_bits % span) % span`` in uint32 arithmetic, with ``mult = (2**16
+    % span)**2 % span`` (the square wrapping at 2**32 as jax's does)."""
+    span = hi - lo if hi > lo else 1
+    mult = (((2 ** 16 % span) ** 2) & MASK32) % span
+    off = (((b[..., 0] % span) * mult) & MASK32) + b[..., 1] % span
+    return ((off & MASK32) % span + lo).to(torch.int32)
 
 
 def choice_slots(keys: torch.Tensor, valid: torch.Tensor, k: int

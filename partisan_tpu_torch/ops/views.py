@@ -1,9 +1,15 @@
-"""Fixed-width partial views (HyParView active/passive), batched.
+"""Fixed-width partial views (HyParView active/passive, SCAMP
+partial/in views), batched.
 
 Port of ``partisan_tpu/ops/views.py``.  A view is ``int32[K]`` of node
 ids with -1 marking empty slots.  The reference writes each op for one
 node and vmaps it; here every op takes a leading batch (node) axis.
-Random keys are int64-held uint32 ranking keys (``ops/rng.rank32``).
+Random inputs are per-node threefry keys ``int64[N, 2]`` (``add``,
+``add_cap``, ``sample``, ``pick_one``), or, where a caller draws them
+ahead, the draws themselves: ``add``'s slot (``ops/rng.randint``) and
+``sample``'s gumbel mantissas (``ops/rng.random_bits >> 9``).
+``admit`` and ``bucket_merge`` take uint32 ranking keys
+(``ops/rng.rank32``).
 """
 
 from __future__ import annotations
@@ -11,9 +17,14 @@ from __future__ import annotations
 import torch
 
 from partisan_tpu_torch.faults import _mix32
+from partisan_tpu_torch.ops import rng
 from partisan_tpu_torch.ops.rng import topk
 
 EMPTY = -1
+
+
+def empty(k: int, device=None) -> torch.Tensor:
+    return torch.full((k,), EMPTY, dtype=torch.int32, device=device)
 
 
 def empty_batch(n: int, k: int, device=None) -> torch.Tensor:
@@ -24,6 +35,106 @@ def contains(view: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """bool[N, C]: ids[N, C] present in view[N, K] (negative ids never)."""
     return ((view[:, None, :] == ids[:, :, None])
             & (ids >= 0)[:, :, None]).any(dim=2)
+
+
+def size(view: torch.Tensor) -> torch.Tensor:
+    """int32[N]: occupied slots per view."""
+    return (view >= 0).sum(dim=-1, dtype=torch.int32)
+
+
+def is_full(view: torch.Tensor) -> torch.Tensor:
+    return (view >= 0).all(dim=-1)
+
+
+def _put(view, nid, already, slot, use_slot_evict):
+    """Write ``nid`` at ``slot`` unless ``already``; the displaced id
+    where ``use_slot_evict``, else -1."""
+    s = slot.to(torch.int64)[:, None]
+    evicted = torch.where(use_slot_evict, view.gather(1, s)[:, 0], EMPTY)
+    new = view.scatter(1, s, nid.to(view.dtype)[:, None])
+    return (torch.where(already[:, None], view, new),
+            torch.where(already, EMPTY, evicted))
+
+
+def add_at(view: torch.Tensor, nid: torch.Tensor, rand_slot: torch.Tensor):
+    """``add`` with its random slot already drawn (``rand_slot`` int32[N],
+    ``rng.randint(key, 0, K)``): insert ``nid[N]`` at the first empty
+    slot, or at ``rand_slot`` evicting its member when full.  A present
+    or negative id is a no-op.  Returns (view', evicted int32[N])."""
+    already = contains(view, nid[:, None])[:, 0] | (nid < 0)
+    hole = view == EMPTY
+    has_empty = hole.any(dim=1)
+    slot = torch.where(has_empty, hole.to(torch.int8).argmax(dim=1),
+                       rand_slot.to(torch.int64))
+    return _put(view, nid, already, slot, ~has_empty)
+
+
+def add(view: torch.Tensor, nid: torch.Tensor, keys: torch.Tensor):
+    """Insert ``nid[N]``; if full, evict a RANDOM member
+    (``jax.random.randint(key, (), 0, K)``).  Returns (view', evicted)."""
+    return add_at(view, nid, rng.randint(keys, 0, view.shape[1]))
+
+
+def add_cap(view: torch.Tensor, nid: torch.Tensor, keys: torch.Tensor,
+            cap):
+    """``add`` under a soft capacity ``cap`` (int or int[N]): the view
+    counts as full once ``size >= cap``; at capacity a random member
+    (``pick_one``) is evicted; ``cap <= 0`` rejects the add.  Returns
+    (view', evicted)."""
+    cap = torch.as_tensor(cap, device=view.device)
+    already = contains(view, nid[:, None])[:, 0] | (nid < 0) | (cap <= 0)
+    at_cap = size(view) >= cap
+    hole = view == EMPTY
+    has_empty = hole.any(dim=1)
+    evictee = pick_one(view, keys)
+    evict_slot = (view == evictee[:, None]).to(torch.int8).argmax(dim=1)
+    use_evict = at_cap | ~has_empty
+    slot = torch.where(use_evict, evict_slot,
+                       hole.to(torch.int8).argmax(dim=1))
+    return _put(view, nid, already, slot, use_evict)
+
+
+def remove(view: torch.Tensor, nid: torch.Tensor) -> torch.Tensor:
+    """Clear ``nid[N]`` from each row."""
+    nid = nid[:, None]
+    return torch.where((view == nid) & (nid >= 0), EMPTY, view)
+
+
+def keep_only(view: torch.Tensor, keep_mask_of_id: torch.Tensor
+              ) -> torch.Tensor:
+    """Clear slots whose id fails the bool[n_global] lookup."""
+    ids = view.clamp(min=0).to(torch.int64)
+    return torch.where((view >= 0) & keep_mask_of_id[ids], view, EMPTY)
+
+
+def sample_mant(view: torch.Tensor, mant: torch.Tensor, k: int,
+                exclude: torch.Tensor | None = None) -> torch.Tensor:
+    """``sample`` with its gumbel draws already made: ``mant`` int64
+    [N, K] holds ``random_bits(key, K) >> 9``, which ranks exactly as
+    the float gumbel scores do (ops/rng.py)."""
+    valid = view >= 0
+    if exclude is not None:
+        valid = valid & ~(view[:, :, None] == exclude[:, None, :]).any(dim=2)
+    score = torch.where(valid, mant + 1, 0)
+    if k == 1:   # top-1: the first maximum, as lax.top_k orders ties
+        top = score.argmax(dim=1, keepdim=True)
+    else:
+        top = topk(score, k)[1]
+    return torch.where(valid.gather(1, top), view.gather(1, top), EMPTY)
+
+
+def sample(view: torch.Tensor, keys: torch.Tensor, k: int,
+           exclude: torch.Tensor | None = None) -> torch.Tensor:
+    """int32[N, k]: k distinct random members per row (-1 padded),
+    optionally excluding ids ``exclude[N, E]``."""
+    return sample_mant(view, rng.random_bits(keys, view.shape[1]) >> 9, k,
+                       exclude)
+
+
+def pick_one(view: torch.Tensor, keys: torch.Tensor,
+             exclude: torch.Tensor | None = None) -> torch.Tensor:
+    """int32[N]: one random member per row (or -1)."""
+    return sample(view, keys, 1, exclude)[:, 0]
 
 
 def admit(view: torch.Tensor, cands: torch.Tensor, prio: torch.Tensor,

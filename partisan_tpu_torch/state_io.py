@@ -20,9 +20,11 @@ import numpy as np
 import torch
 
 from partisan_tpu_torch import cluster, delivery, device as device_mod
-from partisan_tpu_torch import faults
-from partisan_tpu_torch.managers import fullmesh, hyparview
-from partisan_tpu_torch.models import direct_mail, plumtree
+from partisan_tpu_torch import faults, health
+from partisan_tpu_torch.managers import (client_server, fullmesh,
+                                         hyparview, scamp, static)
+from partisan_tpu_torch.models import (anti_entropy, direct_mail, plumtree,
+                                       rumor_mongering)
 from partisan_tpu_torch.ops import exchange
 from partisan_tpu_torch.ops.plane import Planes
 
@@ -31,7 +33,9 @@ _TYPES = {cls.__name__: cls for cls in (
     faults.FaultState, exchange.Inbox, hyparview.HyParViewState,
     plumtree.PlumtreeState, fullmesh.FullMeshState,
     direct_mail.DirectMailState, delivery.DeliveryState,
-    delivery.AckState)}
+    delivery.AckState, scamp.ScampState, static.StaticState,
+    client_server.ClientServerState, anti_entropy.AntiEntropyState,
+    rumor_mongering.RumorState, health.HealthState)}
 
 # (NamedTuple, field) leaves the reference keeps as uint32 and the port
 # holds in int64.

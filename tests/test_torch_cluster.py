@@ -268,7 +268,12 @@ def test_port_imports_no_jax():
             "partisan_tpu_torch.scenarios, partisan_tpu_torch.state_io, "
             "partisan_tpu_torch.kernels, partisan_tpu_torch.filibuster, "
             "partisan_tpu_torch.probe, partisan_tpu_torch.trace, "
-            "partisan_tpu_torch.analysis, partisan_tpu_torch.interpose; "
+            "partisan_tpu_torch.analysis, partisan_tpu_torch.interpose, "
+            "partisan_tpu_torch.health, partisan_tpu_torch.managers.scamp, "
+            "partisan_tpu_torch.managers.static, "
+            "partisan_tpu_torch.managers.client_server, "
+            "partisan_tpu_torch.models.anti_entropy, "
+            "partisan_tpu_torch.models.rumor_mongering; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'partisan_tpu' "
             "or m.startswith('partisan_tpu.')]; "
@@ -291,15 +296,42 @@ def test_entry_points_default_to_cuda():
 
 
 @pytest.mark.parametrize("override", [
-    dict(metrics=True), dict(latency=True), dict(health=10),
+    dict(metrics=True), dict(latency=True), dict(flight_rounds=8),
     dict(provenance=True), dict(plane_major=False),
     dict(causal_labels=("chat",)), dict(channel_capacity=True),
     dict(salt_operand=True),
-    dict(peer_service_manager="scamp_v2"),
+    dict(elastic=True),
     dict(hyparview=THyParView(xbot=True)),
+    dict(causal_p2p_labels=("p2p",)),
+    dict(health=10, metrics=True),
+    dict(peer_service_manager="xbot"),
 ])
 def test_config_refuses_unported_options(override):
     kw = bench_kwargs(THyParView, TPlumtreeCfg)
     kw.update(override)
     with pytest.raises(NotImplementedError):
         TConfig(**kw)
+
+
+@pytest.mark.parametrize("override", [
+    dict(health=10), dict(health=3, health_ring=4),
+    dict(peer_service_manager="scamp_v1"),
+    dict(peer_service_manager="scamp_v2", membership_strategy="scamp_v2"),
+    dict(peer_service_manager="static"),
+    dict(peer_service_manager="client_server", cs_servers=3),
+])
+def test_config_accepts_ported_options(override):
+    from partisan_tpu_torch import managers
+    from partisan_tpu_torch.config import ScampConfig as TScampCfg
+
+    kw = bench_kwargs(THyParView, TPlumtreeCfg)
+    kw.update(override, scamp=TScampCfg(partial_max=8))
+    cfg = TConfig(**kw)
+    assert managers.get(cfg.peer_service_manager).name.startswith(
+        cfg.peer_service_manager.split("_")[0])
+    width = managers.neighbor_width(cfg)
+    assert width == {"hyparview": 6, "scamp_v1": 8, "scamp_v2": 8}.get(
+        cfg.peer_service_manager, cfg.n_nodes)
+    for bad in (dict(health=-1), dict(health_ring=0)):
+        with pytest.raises(ValueError):
+            TConfig(**{**kw, **bad})

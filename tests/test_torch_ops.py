@@ -352,3 +352,105 @@ def test_push_max_parity(D):
         np.asarray(jg.push_or(jnp.asarray(flags), jnp.asarray(dst),
                               n_out=n)),
         tg.push_or(t(flags), t(dst), n_out=n).numpy())
+
+
+# --- jax.random draws and the views ops SCAMP uses ------------------------
+
+def _keys(seed, n, tag):
+    """n reference keys and the port's int64 copies of them."""
+    jk = jax.vmap(lambda kk: jr.subkey(kk, tag))(
+        jr.node_keys(seed, jnp.int32(7), jnp.arange(n, dtype=jnp.int32)))
+    return jk, t(u64(jax.random.key_data(jk)))
+
+
+@pytest.mark.parametrize("span", [1, 3, 7, 16, 64, 65, 96, 65536, 65537,
+                                  (1 << 20) + 3])
+def test_randint_uniform_split_parity(span):
+    """``jax.random.randint(key, (), 0, span)`` (split + two draws +
+    the wrapping multiplier), scalar ``uniform`` and ``split`` over 1024
+    keys per span."""
+    jk, tk = _keys(span, 1024, 505)
+    want = jax.vmap(lambda kk: jax.random.randint(kk, (), 0, span))(jk)
+    np.testing.assert_array_equal(np.asarray(want),
+                                  tr.randint(tk, 0, span).numpy())
+    want = jax.vmap(lambda kk: jax.random.randint(kk, (), 3, 3 + span))(jk)
+    np.testing.assert_array_equal(np.asarray(want),
+                                  tr.randint(tk, 3, 3 + span).numpy())
+    np.testing.assert_array_equal(
+        np.asarray(jax.vmap(jax.random.uniform)(jk)), tr.uniform(tk).numpy())
+    np.testing.assert_array_equal(
+        u64(jax.random.key_data(jax.vmap(jax.random.split)(jk))),
+        tr.split2(tk).numpy())
+
+
+def _random_views(rng, n, k, ids, fill):
+    """int32[n, k] views of distinct ids in [0, ids), -1 holes, some rows
+    full and some empty."""
+    out = np.full((n, k), -1, np.int32)
+    for i in range(n):
+        occ = rng.random(k) < fill[i % len(fill)]
+        vals = rng.choice(ids, size=k, replace=False)
+        out[i] = np.where(occ, vals, -1)
+    return out
+
+
+@pytest.mark.parametrize("k", [6, 16, 64])
+def test_views_add_remove_keep_only_parity(k):
+    rng = np.random.default_rng(k)
+    n = 256
+    view = _random_views(rng, n, k, 4 * k, fill=(1.0, 0.0, 0.5, 0.9))
+    nid = rng.integers(-1, 4 * k, n).astype(np.int32)
+    nid[::7] = view[::7, 0]                          # already present
+    jk, tk = _keys(k, n, 421)
+    jw, jev = jax.vmap(jv.add)(jnp.asarray(view), jnp.asarray(nid), jk)
+    tw, tev = tv.add(t(view), t(nid), tk)
+    np.testing.assert_array_equal(np.asarray(jw), tw.numpy())
+    np.testing.assert_array_equal(np.asarray(jev), tev.numpy())
+    for cap in (0, k // 2, k):
+        jv2, je2 = jax.vmap(lambda v, x, kk: jv.add_cap(v, x, kk, cap))(
+            jnp.asarray(view), jnp.asarray(nid), jk)
+        tw2, te2 = tv.add_cap(t(view), t(nid), tk, cap)
+        np.testing.assert_array_equal(np.asarray(jv2), tw2.numpy())
+        np.testing.assert_array_equal(np.asarray(je2), te2.numpy())
+    np.testing.assert_array_equal(
+        np.asarray(jax.vmap(jv.remove)(jnp.asarray(view), jnp.asarray(nid))),
+        tv.remove(t(view), t(nid)).numpy())
+    keep = rng.random(4 * k) < 0.5
+    np.testing.assert_array_equal(
+        np.asarray(jax.vmap(lambda v: jv.keep_only(v, jnp.asarray(keep)))(
+            jnp.asarray(view))),
+        tv.keep_only(t(view), t(keep)).numpy())
+    np.testing.assert_array_equal(
+        np.asarray(jax.vmap(jv.size)(jnp.asarray(view))),
+        tv.size(t(view)).numpy())
+    np.testing.assert_array_equal(
+        np.asarray(jax.vmap(jv.is_full)(jnp.asarray(view))),
+        tv.is_full(t(view)).numpy())
+    assert tv.empty(k).tolist() == np.asarray(jv.empty(k)).tolist()
+
+
+@pytest.mark.parametrize("k,m", [(6, 1), (16, 3), (64, 1), (64, 5)])
+def test_views_sample_pick_one_parity(k, m):
+    rng = np.random.default_rng(100 + k + m)
+    n = 256
+    view = _random_views(rng, n, k, 3 * k, fill=(1.0, 0.0, 0.3, 0.8))
+    exclude = np.where(rng.random((n, 2)) < 0.7, view[:, :2],
+                       rng.integers(-1, 3 * k, (n, 2))).astype(np.int32)
+    jk, tk = _keys(m, n, 423)
+    for ex_j, ex_t in ((None, None), (jnp.asarray(exclude), t(exclude))):
+        want = jax.vmap(lambda v, kk, *e: jv.sample(v, kk, m, *e))(
+            jnp.asarray(view), jk, *(() if ex_j is None else (ex_j,)))
+        got = tv.sample(t(view), tk, m, ex_t)
+        np.testing.assert_array_equal(np.asarray(want), got.numpy())
+        want1 = jax.vmap(lambda v, kk, *e: jv.pick_one(v, kk, *e))(
+            jnp.asarray(view), jk, *(() if ex_j is None else (ex_j,)))
+        np.testing.assert_array_equal(
+            np.asarray(want1), tv.pick_one(t(view), tk, ex_t).numpy())
+
+
+def test_stack_records_parity():
+    rng = np.random.default_rng(3)
+    a, b = records(rng, (9, 3), 9), records(rng, (9, 3), 9)
+    want = jpl.stack_records([jplanes(a), jplanes(b)], axis=1)
+    got = tpl.stack_records([tplanes(a), tplanes(b)], dim=1)
+    assert_planes_equal(want, got)
