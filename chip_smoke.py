@@ -65,7 +65,29 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    3 must meet its repair-round bound, config 4 its in_band, and
    hyparview_views must report one component.  Kernel counts are reset
    just before and read just after (these paths launch neither kernel);
-11. the kernels line, the card line, and last the result line
+11. causal and channel parity, small: the scenario suite's config 5 at
+   n=128 (senders 8, crashes 4) and config 6 over its test matrix
+   (1 and 8 MiB, concurrency 1 and 4, 1 and 100 ms, 10 round trips) on
+   the card and on the CPU — every returned field identical except the
+   wall-clock ones — and one point-to-point lane setup (n=16, two-bucket
+   tables, 30% loss) and one causal broadcast setup (n=8 full mesh, a
+   partition healed) of tests/test_torch_delivery.py: every state leaf
+   identical after every round;
+12. config 5 at the reference's default n=100,000 on the card: it must
+   deliver all 128 causal messages, FIFO at all 64 receivers, and
+   converge; its wall split into boot, convergence, the throughput
+   instrument and the rest (scripting, drain, the log check), its
+   rounds/s, the peak of torch.cuda.max_memory_allocated, and a profiled
+   K_PROG-round window from the scripted state (the sends and the
+   broadcast in flight) and one from the drained state: kernel launches,
+   host reads and device time per round;
+13. config 6 at n=2 over the reference's 48-cell matrix (4 sizes x 4
+   concurrencies x 3 latencies) at 50 round trips per sender (run_all's
+   floor): every cell's echoes equal concurrency x 50; its rows, its
+   seconds, and a profiled window of one cell's rounds.  Kernel counts
+   are reset just before phases 11, 12 and 13 and read just after each
+   (these paths launch neither kernel);
+14. the kernels line, the card line, and last the result line
    {"ok": true, "device": {...}}.
 """
 
@@ -88,6 +110,8 @@ FB_HORIZON = 12
 FULL_HORIZON = 24           # the full-width Filibuster phase
 FULL_SCHED_WIDTH = 80       # >= the bench path's 77-slot emission width
 FULL_MAX_EXECUTIONS = 4
+N_CONFIG5 = 100_000         # the reference's DEFAULT_SIZES[5]
+ECHO_MESSAGES = 50          # run_all's floor for config 6
 
 
 def log(obj) -> None:
@@ -486,6 +510,11 @@ SCENARIO_SMALL = {"config1": ("config1_anti_entropy", dict(n=16)),
                   "config3": ("config3_plumtree_drop", dict(n=128)),
                   "config4": ("config4_scamp_churn", dict(n=128, rounds=40)),
                   "hyparview_views": ("hyparview_views", dict(n=128))}
+CAUSAL_SMALL = {"config5": ("config5_causal_crash",
+                                dict(n=128, senders=8, crashes=4)),
+                "config6": ("config6_echo",
+                            dict(sizes_kb=(1024, 8192), concurrency=(1, 4),
+                                 latencies_ms=(1, 100), num_messages=10))}
 SCENARIO_FULL = {"config1": ("config1_anti_entropy", dict(n=16)),
                  "config2": ("config2_rumor", dict(n=1000)),
                  "config3": ("config3_plumtree_drop", dict(n=10_000)),
@@ -494,28 +523,40 @@ SCENARIO_FULL = {"config1": ("config1_anti_entropy", dict(n=16)),
                  "hyparview_views": ("hyparview_views", dict(n=1000))}
 
 
-def run_scenario(name: str, kwargs: dict, device=None) -> tuple:
+def run_scenario(name: str, kwargs: dict, device=None,
+                 seen=None) -> tuple:
     """One scenario function of partisan_tpu_torch.scenarios, with its
     wall seconds split into the bootstrap (the scenario's
-    ``_boot_fullmesh`` / ``_boot_overlay`` calls, each ended by a
-    synchronize) and the rest."""
+    ``_boot_fullmesh`` / ``_boot_overlay`` / ``_boot_ladder`` calls), the
+    convergence loop (``_converge``), the throughput instrument
+    (``_throughput``), each ended by a synchronize, and the rest.  When
+    ``seen`` is a dict, each wrapped function's last arguments are kept
+    there under its name."""
     from partisan_tpu_torch import scenarios as sc
 
-    boot = [0.0]
-    originals = {k: getattr(sc, k) for k in ("_boot_fullmesh",
-                                              "_boot_overlay")}
+    spent = {"boot": 0.0, "converge": 0.0, "throughput": 0.0}
+    phase = {"_boot_fullmesh": "boot", "_boot_overlay": "boot",
+             "_boot_ladder": "boot", "_converge": "converge",
+             "_throughput": "throughput"}
+    originals = {k: getattr(sc, k) for k in phase}
 
-    def timed(orig):
-        def boot_fn(*a, **kw):
+    state_of = {"_converge": lambda o: o[0], "_boot_ladder": lambda o: o[1],
+                "_boot_fullmesh": lambda o: o, "_boot_overlay": lambda o: o}
+
+    def timed(key, orig):
+        def fn(*a, **kw):
+            if seen is not None:
+                seen[key] = a
             t0 = time.perf_counter()
-            st = orig(*a, **kw)
-            sc._sync(st)
-            boot[0] += time.perf_counter() - t0
-            return st
-        return boot_fn
+            out = orig(*a, **kw)
+            if key in state_of:
+                sc._sync(state_of[key](out))
+            spent[phase[key]] += time.perf_counter() - t0
+            return out
+        return fn
 
     for k, fn in originals.items():
-        setattr(sc, k, timed(fn))
+        setattr(sc, k, timed(k, fn))
     try:
         t0 = time.perf_counter()
         res = getattr(sc, name)(device=device, **kwargs)
@@ -523,12 +564,188 @@ def run_scenario(name: str, kwargs: dict, device=None) -> tuple:
     finally:
         for k, fn in originals.items():
             setattr(sc, k, fn)
-    return res, {"wall_s": wall, "boot_s": boot[0],
-                 "rest_s": wall - boot[0]}
+    return res, {"wall_s": wall, "boot_s": spent["boot"],
+                 "rest_s": wall - spent["boot"],
+                 "converge_s": spent["converge"],
+                 "throughput_s": spent["throughput"]}
+
+
+WALL_KEYS = ("rounds_per_sec", "convergence_wall_sec", "measured_wall_s")
 
 
 def strip_rate(d: dict) -> dict:
-    return {k: v for k, v in d.items() if k != "rounds_per_sec"}
+    """A scenario dict without its wall-clock fields (config 6's rows
+    too)."""
+    return {k: [strip_rate(r) for r in v] if k == "rows" else v
+            for k, v in d.items() if k not in WALL_KEYS}
+
+
+def round_profile(fn, rounds: int) -> dict:
+    """Per round of ``fn`` (which runs ``rounds`` rounds): the wall of a
+    bare call, then under torch.profiler the kernels' summed device time,
+    the kernel launches and the host reads (``aten::_local_scalar_dense``:
+    every ``bool()``/``int()`` of a card tensor)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = prof.key_averages()
+    kern = [e for e in ev if _self_device_us(e) > 0
+            and str(getattr(e, "device_type", "")).endswith("CUDA")]
+    busy = sum(_self_device_us(e) for e in kern) / 1e6
+    return {"rounds": rounds, "wall_ms_per_round": wall * 1e3 / rounds,
+            "device_ms_per_round": busy * 1e3 / rounds,
+            "device_idle_share": max(0.0, 1.0 - busy / wall),
+            "launches_per_round": sum(e.count for e in kern) / rounds,
+            "host_reads_per_round": sum(
+                e.count for e in ev if e.key == "aten::_local_scalar_dense")
+            / rounds}
+
+
+def lane_setups(device: str) -> dict:
+    """Two setups of tests/test_torch_delivery.py on ``device``, with the
+    state after every round: the point-to-point lane with two-bucket
+    tables under 30% loss (n=16: six senders into node 0, node 0 into
+    six destinations), and the causal broadcast lane through CausalChat
+    (n=8 full mesh; node 0's broadcast cut from node 2, node 1 answers,
+    the cut heals)."""
+    from partisan_tpu_torch import faults
+    from partisan_tpu_torch.cluster import Cluster
+    from partisan_tpu_torch.config import Config
+    from partisan_tpu_torch.models.causal_chat import CausalChat
+    from partisan_tpu_torch.models.p2p_chat import P2PChat
+
+    out = {}
+    model = P2PChat()
+    cl = Cluster(Config(n_nodes=16, seed=7, causal_p2p_labels=("chat",),
+                        peer_service_manager="static", p2p_dst_cap=2,
+                        p2p_src_cap=2), model=model, device=device)
+    st = cl.init()
+    m = st.model
+    for node, rnd, dst in [(s, r, 0) for s in range(1, 7) for r in (3, 5)] \
+            + [(0, 3 + k, 1 + k) for k in range(6)]:
+        m = model.schedule(m, node=node, rnd=rnd, dst=dst)
+    st = st._replace(model=m, faults=faults.set_link_drop(st.faults, 0.3))
+    states = []
+    for r in range(24):
+        if r == 16:
+            st = st._replace(faults=faults.set_link_drop(st.faults, 0.0))
+        st = cl.step(st)
+        states.append(st)
+    out["p2p"] = states
+
+    chat = CausalChat()
+    cl = Cluster(Config(n_nodes=8, seed=13, causal_labels=("chat",),
+                        n_actors=8), model=chat, device=device)
+    st = cl.init()
+    m = st.manager
+    for i in range(1, 8):
+        m = cl.manager.join(cl.cfg, m, i, 0)
+    st = cl.steps(st._replace(manager=m), 15)
+    st = st._replace(faults=faults.inject_partition(st.faults, [0], [2]))
+    states = []
+    for r in range(10):
+        if r in (0, 3):
+            st = st._replace(model=chat.schedule(
+                st.model, node=0 if r == 0 else 1, rnd=int(st.rnd) + 1))
+        if r == 6:
+            st = st._replace(faults=faults.resolve_partition(st.faults))
+        st = cl.step(st)
+        states.append(st)
+    out["causal"] = states
+    return out
+
+
+def lane_parity() -> dict:
+    """Phase 11: configs 5 and 6 small, and the two lane setups, card
+    against CPU."""
+    from partisan_tpu_torch import delivery
+
+    out = {}
+    for label, (name, kw) in CAUSAL_SMALL.items():
+        g, g_t = run_scenario(name, kw, device="cuda")
+        c, c_t = run_scenario(name, kw, device="cpu")
+        if strip_rate(g) != strip_rate(c):
+            raise AssertionError(f"{label}: card {g} != CPU {c}")
+        out[label] = {"result": g, "card_wall_s": g_t["wall_s"],
+                      "cpu_wall_s": c_t["wall_s"]}
+    if out["config5"]["result"]["causal_deliveries"] != 16:
+        raise AssertionError(f"config 5 small: {out['config5']}")
+    g, c = lane_setups("cuda"), lane_setups("cpu")
+    for label in g:
+        n_leaves = 0
+        for r, (a, b) in enumerate(zip(g[label], c[label])):
+            n_leaves = assert_identical(a, b, f"{label} round {r}")
+        last = g[label][-1].delivery
+        out[label] = {"rounds": len(g[label]), "leaves": n_leaves,
+                      "overflow_total": int(delivery.overflow_total(last))}
+        if label == "p2p":
+            lane = last.p2p[0]
+            out[label].update(resets=int(lane.resets),
+                              aborted=int(lane.aborted))
+    return out
+
+
+def config5_full(card: str) -> dict:
+    """Phase 12: config 5 at n=100,000 on the card."""
+    from partisan_tpu_torch import scenarios as sc
+
+    seen = {}
+    torch.cuda.reset_peak_memory_stats()
+    res, t = run_scenario("config5_causal_crash", dict(n=N_CONFIG5),
+                          seen=seen)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not (res["causal_deliveries"] == res["causal_expected"] == 128
+            and res["fifo_ok_receivers"] == res["n_receivers"] == 64
+            and res["convergence_rounds"] > 0):
+        raise AssertionError(f"config 5 at n={N_CONFIG5}: {res}")
+    cl, st = seen["_converge"][:2]
+    scripted = round_profile(lambda: cl.steps(st, sc.K_PROG), sc.K_PROG)
+    cl, st = seen["_throughput"][:2]
+    steady = round_profile(lambda: cl.steps(st, sc.K_PROG), sc.K_PROG)
+    return {"result": res, **t,
+            "rest_s": t["wall_s"] - t["boot_s"] - t["converge_s"]
+            - t["throughput_s"],
+            "peak_mem_gib": peak, "window_scripted": scripted,
+            "window_drained": steady, "card": card}
+
+
+def config6_full(card: str) -> dict:
+    """Phase 13: config 6's 48-cell matrix at n=2 on the card."""
+    from partisan_tpu_torch import scenarios as sc
+    from partisan_tpu_torch.cluster import Cluster
+    from partisan_tpu_torch.config import DEFAULT_CHANNEL, ChannelSpec, \
+        Config
+    from partisan_tpu_torch.models.echo import Echo
+    from partisan_tpu_torch.ops import rng
+
+    t0 = time.perf_counter()
+    res = sc.config6_echo(num_messages=ECHO_MESSAGES)
+    wall = time.perf_counter() - t0
+    if res["cells"] != 48:
+        raise AssertionError(f"config 6: {res['cells']} cells")
+    rounds = sum(r["rounds"] for r in res["rows"])
+    # one cell's rounds under the profiler: concurrency 8 on one lane
+    model = Echo(concurrency=8, num_messages=ECHO_MESSAGES)
+    cl = Cluster(Config(n_nodes=2, seed=11, peer_service_manager="static",
+                        channel_capacity=True, lane_rate=1, outbox_cap=32,
+                        channels=(ChannelSpec(DEFAULT_CHANNEL),)),
+                 model=model)
+    st = cl.steps(cl.init(), sc.K_PROG)
+    window = round_profile(lambda: cl.steps(st, sc.K_PROG), sc.K_PROG)
+    # the round's per-node threefry keys alone (static + Echo read none)
+    gids = cl.comm.local_ids()
+    keys = round_profile(lambda: rng.node_keys(cl.cfg.seed, st.rnd, gids), 1)
+    return {"result": res, "wall_s": wall, "rounds": rounds,
+            "s_per_round": wall / rounds, "window_c8": window,
+            "window_node_keys": keys, "card": card}
 
 
 def health_convergence(device: str, n: int):
@@ -779,7 +996,30 @@ def main() -> int:
          "seconds": time.perf_counter() - t0,
          "wall_s": {r["label"]: r["wall_s"] for r in suite}})
 
-    # 11. kernels line, card line, result line
+    # 11. causal and channel parity, small: card against CPU
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    lp = lane_parity()
+    lp_counts = dict(kernels.launches)
+    log({"phase": "causal_parity", **lp, "launches": lp_counts,
+         "seconds": time.perf_counter() - t0})
+
+    # 12. config 5 at n=100,000, counts reset just before
+    kernels.reset_launches()
+    c5 = config5_full(card)
+    c5_counts = dict(kernels.launches)
+    log({"phase": "config5", "n": N_CONFIG5, **c5, "launches": c5_counts})
+
+    # 13. config 6's 48 cells, counts reset just before
+    kernels.reset_launches()
+    c6 = config6_full(card)
+    c6_counts = dict(kernels.launches)
+    log({"phase": "config6", "num_messages": ECHO_MESSAGES, **c6,
+         "launches": c6_counts})
+    new_paths = {"causal_parity": lp_counts, "config5": c5_counts,
+                 "config6": c6_counts}
+
+    # 14. kernels line, card line, result line
     timing_keys = ("ms", "device_ms", "host_ms", "plain_ms", "library_ms",
                    "bound_ms")
     log({"kernels": [{
@@ -787,11 +1027,14 @@ def main() -> int:
         "source": "partisan_tpu_torch/csrc/interleave.cu",
         "replaces": "tools/pallas_probe.py:54",
         "launches": counts["interleave"] + probe_counts["interleave"]
-        + fb["launches"]["interleave"] + suite_counts["interleave"],
+        + fb["launches"]["interleave"] + suite_counts["interleave"]
+        + sum(c["interleave"] for c in new_paths.values()),
         "launches_by_path": {"bench_record": counts["interleave"],
                              "probe": probe_counts["interleave"],
                              "filibuster": fb["launches"]["interleave"],
-                             "scenarios": suite_counts["interleave"]},
+                             "scenarios": suite_counts["interleave"],
+                             **{k: c["interleave"]
+                                for k, c in new_paths.items()}},
         "matches_plain": main_check["max_abs_err"] == 0
         and ragged["max_abs_err"] == 0
         and all(r["max_abs_err"] == 0 for r in edges),
@@ -802,9 +1045,12 @@ def main() -> int:
         "name": "minimal", "route": "cuda",
         "source": "partisan_tpu_torch/csrc/minimal.cu",
         "replaces": "tools/pallas_probe.py:59",
-        "launches": probe_counts["minimal"] + suite_counts["minimal"],
+        "launches": probe_counts["minimal"] + suite_counts["minimal"]
+        + sum(c["minimal"] for c in new_paths.values()),
         "launches_by_path": {"probe": probe_counts["minimal"],
-                             "scenarios": suite_counts["minimal"]},
+                             "scenarios": suite_counts["minimal"],
+                             **{k: c["minimal"]
+                                for k, c in new_paths.items()}},
         "matches_plain": all(r["max_abs_err"] == 0
                              for r in [min_main, min_ragged] + min_edges),
         "max_abs_err": max(r["max_abs_err"]

@@ -3,19 +3,20 @@
 
 One round advances the whole cluster ``round_ms`` of virtual time:
 per-node round keys, the manager transition, the model transition, the
-delivery layer's send path (the ack lane), the wire stage and the
-exchange into next round's inboxes, then the stats and, every
-``Config.health`` rounds, the health plane's topology snapshot.  The
-wire stage has the reference's two arms:
+delivery layer's send path, the wire stage and the exchange into next
+round's inboxes, the dead-receiver stage, the delivery layer's causal
+receive path, then the stats and, every ``Config.health`` rounds, the
+health plane's topology snapshot.  The wire stage has the reference's
+two arms:
 
-- the FAST arm (``step``/``steps`` with no interposition and groups
-  partitions): compaction first, one packed destination-facts gather,
-  the hash-Bernoulli edge cut, route;
-- the GENERIC arm (``record``, or any interposition, or dense
-  partitions): monotonic shed, the interposition chain, the emitted
-  count, the fault filter, THE plane->wire interleave (the hand-written
-  CUDA kernel on the card) only when capturing the trace, then
-  compaction and route.
+- the FAST arm (``step``/``steps`` with no interposition, no channel
+  capacity and groups partitions): compaction first, one packed
+  destination-facts gather, the hash-Bernoulli edge cut, route;
+- the GENERIC arm (``record``, or any interposition, the channel-capacity
+  stage or dense partitions): monotonic shed, the interposition chain,
+  the emitted count, the channel-capacity throttle, the fault filter,
+  THE plane->wire interleave (the hand-written CUDA kernel on the card)
+  only when capturing the trace, then compaction and route.
 
 ``ClusterState`` keeps the reference's field order and leaf dtypes, with
 ``()`` for every plane the port does not carry.  The reference's
@@ -30,6 +31,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from partisan_tpu_torch import channels as channels_mod
 from partisan_tpu_torch import delivery as delivery_mod
 from partisan_tpu_torch import device as device_mod
 from partisan_tpu_torch import faults as faults_mod
@@ -118,17 +120,18 @@ def round_body(cfg: Config, manager: Any, model: Any, comm: LocalComm,
         dstate_model = ()
         emitted = plane_ops.concat(plane_ops.blocks_of(m_emit), dim=1)
 
-    dstate = state.delivery
+    dstate, wides = state.delivery, ()
     if delivery_mod.enabled(cfg):
-        dstate, emitted = delivery_mod.outbound(cfg, comm, dstate,
-                                                emitted, ctx)
+        dstate, emitted, wides = delivery_mod.outbound(cfg, comm, dstate,
+                                                       emitted, ctx)
 
     want_shed = cfg.monotonic_shed and any(c.monotonic for c in cfg.channels)
     dev = gids.device
     trace = None
     istate = state.interpose
-    fast = (interpose is None and cfg.resolved_partition_mode == "groups"
-            and not capture)
+    obstate = state.outbox
+    fast = (interpose is None and not channels_mod.enabled(cfg)
+            and cfg.resolved_partition_mode == "groups" and not capture)
     if fast:
         # FAST arm: compaction first, then ONE packed destination-facts
         # gather, the edge cut and the route; skipped when nothing was
@@ -165,8 +168,8 @@ def round_body(cfg: Config, manager: Any, model: Any, comm: LocalComm,
         n_emitted = n_raw - shed_n
     else:
         # GENERIC arm: monotonic shed, interposition, emitted count, the
-        # fault filter, the interleaved trace when capturing, then
-        # compaction + route.
+        # channel-capacity throttle, the fault filter, the interleaved
+        # trace when capturing, then compaction + route.
         if want_shed:
             mono = torch.tensor([c.monotonic for c in cfg.channels],
                                 dtype=torch.bool, device=dev)
@@ -181,6 +184,11 @@ def round_body(cfg: Config, manager: Any, model: Any, comm: LocalComm,
             istate, emitted = interpose.apply(cfg, comm, istate, emitted,
                                               ctx)
         n_emitted = _count(emitted[W_KIND] != 0)
+        if channels_mod.enabled(cfg):
+            # after the count (a deferred send was counted when emitted),
+            # before the faults (it rides the wire the round it leaves)
+            obstate, emitted = channels_mod.throttle(cfg, comm, obstate,
+                                                     emitted)
         sent = emitted
         emitted = faults_mod.filter_msgs(faults_wire, emitted, seed,
                                          state.rnd, _MSG_FILTER_TAG)
@@ -207,9 +215,16 @@ def round_body(cfg: Config, manager: Any, model: Any, comm: LocalComm,
         count=torch.where(dead, 0, inbox.count),
         drops=inbox.drops + torch.where(dead, inbox.count, 0))
     ev_delivered = _count(inbox.count)
+    causal_delivered = 0
+    if delivery_mod.needs_inbound(cfg):
+        # broadcast lanes bypass the route; p2p records are re-ordered
+        # out of the inbox here
+        dstate, inbox, causal_delivered = delivery_mod.inbound(
+            cfg, comm, dstate, inbox, wides, ctx)
+    # `dropped` books the event lane only
     stats = Stats(
         emitted=state.stats.emitted + n_emitted,
-        delivered=state.stats.delivered + ev_delivered,
+        delivered=state.stats.delivered + ev_delivered + causal_delivered,
         dropped=state.stats.dropped + (n_emitted - ev_delivered))
     hstate = state.health
     if health_mod.enabled(cfg) and bool((state.rnd + 1) % cfg.health == 0):
@@ -229,7 +244,7 @@ def round_body(cfg: Config, manager: Any, model: Any, comm: LocalComm,
     out = ClusterState(rnd=state.rnd + 1, faults=state.faults, inbox=inbox,
                        manager=mstate, model=dstate_model,
                        delivery=dstate, stats=stats, interpose=istate,
-                       n_active=n_act, health=hstate)
+                       outbox=obstate, n_active=n_act, health=hstate)
     if capture:
         return out, trace
     return out
@@ -310,6 +325,8 @@ class Cluster:
             stats=Stats(zero, zero, zero),
             interpose=(self.interpose.init(cfg, comm)
                        if self.interpose is not None else ()),
+            outbox=(channels_mod.init(cfg, comm)
+                    if channels_mod.enabled(cfg) else ()),
             n_active=(torch.tensor(cfg.n_nodes, dtype=torch.int32,
                                    device=dev)
                       if cfg.width_operand else ()),

@@ -4,7 +4,8 @@
 program against — ``route`` (event records into inboxes) and
 ``push_max`` (monotonic state merge) — with every node on one device.
 The cross-shard reductions (``allsum``, ``allmax``, ``allmin``,
-``gather_vec``) are identities here.
+``gather_vec``) are identities here; ``actor_gather`` slices the causal
+actor block.
 """
 
 from __future__ import annotations
@@ -53,6 +54,14 @@ class LocalComm:
     def allmin(self, x):
         """Elementwise on arrays (the health plane's label proposals)."""
         return x
+
+    def actor_gather(self, x, a: int):
+        """Rows of ``x`` (a record stack) for nodes 0..a-1, the causal
+        actor space."""
+        if a > self.n_local:
+            raise ValueError(
+                f"n_actors={a} must be <= nodes per shard ({self.n_local})")
+        return x.map(lambda w: w[:a])
 
     def gather_vec(self, x):
         return x

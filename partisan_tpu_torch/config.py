@@ -4,8 +4,9 @@ The fields are the reference's, by name and default, for everything this
 slice reads or refuses, so bench.py's ``Config(...)`` call builds the
 same configuration here.  The port runs the full-mesh, HyParView,
 SCAMP v1/v2, static and client-server managers on the plane-major
-wire, with groups or dense partitions, the send-path delay keys, the
-ack lane of the delivery layer and the health plane; every other
+wire, with groups or dense partitions, the send-path delay keys, every
+lane of the delivery layer (acked, causal broadcast, point-to-point
+causal), the channel-capacity stage and the health plane; every other
 observability plane is off, and every option the port does not carry
 raises ``NotImplementedError`` at construction instead of being
 silently ignored.  ``superstep`` is a loop fold with no effect on
@@ -15,6 +16,7 @@ results, so it is accepted.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any
 
 import torch
@@ -94,8 +96,7 @@ MANAGERS = ("fullmesh", "hyparview", "scamp_v1", "scamp_v2",
 _OFF = {
     "metrics": False, "latency": False, "flight_rounds": 0,
     "provenance": False, "elastic": False, "salt_operand": False,
-    "channel_capacity": False, "causal_labels": (),
-    "causal_p2p_labels": (), "plane_major": True,
+    "plane_major": True,
 }
 # Parameter blocks of unported subsystems (distance, control, traffic,
 # ingress, watchdog): only their absence is accepted.
@@ -119,9 +120,18 @@ class Config:
     egress_delay_ms: int = 0
     ingress_delay_ms: int = 0
     delay_buf_cap: int = 0
-    causal_labels: tuple = ()
-    ack_cap: int = 0
-    causal_p2p_labels: tuple = ()
+    causal_labels: tuple = ()     # one causal broadcast lane per label
+    ack_cap: int = 0              # outstanding acked sends per node
+    causal_buf_cap: int = 8       # undelivered causal records buffered
+    causal_emit_cap: int = 4      # causal sends per node per round
+    causal_hist_cap: int = 8      # sender-side re-emission history
+    causal_deliver_cap: int = 16  # causal deliveries per node per round
+    causal_p2p_labels: tuple = ()  # one point-to-point causal lane each
+    p2p_dst_cap: int = 64         # sender-side per-destination seq table
+    p2p_src_cap: int = 64         # receiver-side per-sender seq table
+    p2p_buf_cap: int = 8          # out-of-order arrivals buffered
+    p2p_hist_cap: int = 8         # sender replay ring (unacked store)
+    p2p_emit_cap: int = 4         # p2p causal sends per node per round
     channels: tuple = DEFAULT_CHANNELS
     hyparview: HyParViewConfig = HyParViewConfig()
     scamp: ScampConfig = ScampConfig()
@@ -136,9 +146,13 @@ class Config:
     emit_compact: int = 0
     msg_words: int = 12
     max_broadcasts: int = 64
+    n_actors: int = 64            # vclock width of the causal lanes
     seed: int = 0
     superstep: int = 1
-    channel_capacity: bool = False
+    channel_capacity: bool = False  # enforce ChannelSpec.parallelism
+    lane_rate: int = 1            # msgs per lane per (edge, channel) per
+    #                               round with channel_capacity on
+    outbox_cap: int = 32          # deferred sends carried per node
     width_operand: bool = False
     elastic: bool = False
     salt_operand: bool = False
@@ -162,6 +176,10 @@ class Config:
             raise ValueError(f"duplicate channel names: {names}")
         if DEFAULT_CHANNEL not in names:
             raise ValueError("channels must include the default channel")
+        for c in self.channels:
+            if c.parallelism < 1:
+                raise ValueError(
+                    f"channel {c.name}: parallelism must be >= 1")
         if self.msg_words < 8:
             raise ValueError("msg_words must be >= 8 (header is 8 words)")
         if self.superstep < 1:
@@ -193,10 +211,26 @@ class Config:
                 f"only {MANAGERS} are ported")
         if self.hyparview.xbot:
             raise NotImplementedError("HyParView X-BOT is not ported yet")
+        if not self.channel_capacity:
+            # parallelism > 1 without capacity enforcement is advisory
+            # only (the reference warns the same way)
+            loud = [c.name for c in self.channels if c.parallelism > 1]
+            if loud:
+                warnings.warn(
+                    f"channels {loud} declare parallelism > 1 but "
+                    f"channel_capacity enforcement is off — parallelism "
+                    f"is advisory (set channel_capacity=True to enforce "
+                    f"per-lane throughput)", stacklevel=2)
 
     @property
     def n_channels(self) -> int:
         return len(self.channels)
+
+    @property
+    def wire_words(self) -> int:
+        """Words per queued wire record: ``msg_words`` (the provenance
+        and latency planes' trailing words are not ported)."""
+        return self.msg_words
 
     @property
     def wire_dtypes(self) -> tuple:
@@ -214,6 +248,18 @@ class Config:
             if c.name == name:
                 return i
         raise KeyError(f"unknown channel {name!r}")
+
+    def causal_lane_id(self, label: str) -> int:
+        """Lane index for W_LANE: broadcast lanes first, then p2p lanes
+        (one shared index space)."""
+        if label in self.causal_labels:
+            return self.causal_labels.index(label)
+        if label in self.causal_p2p_labels:
+            return len(self.causal_labels) + \
+                self.causal_p2p_labels.index(label)
+        raise KeyError(
+            f"unknown causal label {label!r}; have "
+            f"{self.causal_labels + self.causal_p2p_labels}")
 
     @property
     def resolved_partition_mode(self) -> str:

@@ -6,6 +6,8 @@ order survives — the per-connection FIFO analogue), finds each
 destination's run with a binary search and gathers up to ``cap``
 records per destination; the rest count as drops.  Records stay planes
 throughout (one sort on the destination plane, per-plane gathers).
+``merge_inboxes`` appends one inbox's records after another's (the
+causal lanes' deliveries into the event inbox).
 """
 
 from __future__ import annotations
@@ -72,3 +74,17 @@ def compact_emissions(emitted: plane_ops.Planes, cap: int
         valid.sum(dim=1)[:, None]
     return plane_ops.take_rows(emitted, torch.where(keep, take, E),
                                fill=True)
+
+
+def merge_inboxes(a: Inbox, b: Inbox) -> Inbox:
+    """Append b's records after a's, capacity permitting: each row's
+    valid slots of both float to the front in order (the stable
+    compaction), the first ``cap`` kept.  ``b`` has at least one slot,
+    any number, and need not be compacted; the result keeps a's capacity
+    and layout."""
+    cap = a.data[W_KIND].shape[1]
+    data = compact_emissions(plane_ops.concat([a.data, b.data], dim=1), cap)
+    total = a.count + b.count
+    delivered = total.clamp(max=cap)
+    return Inbox(data=data, count=delivered,
+                 drops=a.drops + b.drops + total - delivered)

@@ -101,6 +101,15 @@ def stack_words(p: Planes, lo: int = 0, hi: int | None = None
     return torch.stack([w.to(torch.int32) for w in ws], dim=-1)
 
 
+def append_tail(p: Planes, arr: torch.Tensor) -> Planes:
+    """Append ``arr [..., K]``'s minor-axis slices as K trailing int32
+    word planes (the causal lanes' vector-clock block; values at or
+    above 2**31 wrap to their int32 bit pattern)."""
+    arr = torch.where(arr >= 2 ** 31, arr - 2 ** 32, arr)
+    return Planes(tuple(p) + tuple(arr[..., i].to(torch.int32)
+                                   for i in range(arr.shape[-1])))
+
+
 def stack_records(blocks: Sequence[Planes], dim: int = 0) -> Planes:
     """``torch.stack`` over whole records (a new record axis, not the
     word axis)."""

@@ -1,11 +1,11 @@
 """Scenario runners (port of ``partisan_tpu/scenarios.py``): the
-scenario suite's configs 1-4 and the HyParView view-size
+scenario suite's default configs 1-6 and the HyParView view-size
 conformance check, and bench.py's main path.
 
-- :func:`config1_anti_entropy` … :func:`config4_scamp_churn`,
+- :func:`config1_anti_entropy` … :func:`config6_echo`,
   :func:`hyparview_views`, :data:`ALL`, :data:`DEFAULT_SIZES` and
   :func:`run_all` return the reference's dicts; the CLI
-  (``python -m partisan_tpu_torch.scenarios [--only 1 2 3 4] [--scale S]
+  (``python -m partisan_tpu_torch.scenarios [--only 1 ... 6] [--scale S]
   [--health] [--device cpu]``) prints one JSON line per config.  They
   run on the card unless given ``device="cpu"``.
 - The bootstraps: the full mesh's joins via node 0, the batched
@@ -403,21 +403,189 @@ def config4_scamp_churn(n=10_000, churn_per_min=0.30, rounds=120,
             "rounds_per_sec": round(_throughput(cl, st), 1)}
 
 
+def config5_causal_crash(n=100_000, senders=64, crashes=16, max_rounds=400,
+                         device=None):
+    """HyParView + Plumtree + point-to-point causal traffic under crash
+    faults, at the north-star scale: ``senders`` nodes drawn from the
+    whole id space each send two causally-ordered messages to a random
+    destination while ``crashes`` nodes are down and the overlay heals
+    around them.  Checks per-(sender, receiver) FIFO with exactly-once
+    delivery at every receiver, and Plumtree convergence across the
+    healed overlay."""
+    from partisan_tpu_torch.models.p2p_chat import P2PChat
+    from partisan_tpu_torch.models.stack import Stack
+
+    n = max(n, 32)
+    senders = min(senders, n // 4)
+    crashes = min(crashes, n // 4)
+    plum = Plumtree()
+    chat = P2PChat()
+    stack = Stack([plum, chat])
+
+    def make_cfg(width):
+        return _metrics_cfg(Config(
+            n_nodes=width, seed=5, peer_service_manager="hyparview",
+            msg_words=16, partition_mode="groups",
+            causal_p2p_labels=("chat",), max_broadcasts=8, inbox_cap=16,
+            emit_compact=32 if n > 4096 else 0, timer_stagger=False,
+            width_operand=True,
+            plumtree=PlumtreeConfig(push_slots=2, lazy_cap=4)))
+
+    cfg = make_cfg(n)
+    cl = make_cluster_auto(cfg, model=stack, device=device)
+
+    def cov(s):
+        return plum.coverage(stack.sub(s.model, 0), s.faults.alive, 0)
+
+    def make_cluster(width):
+        return cl if width == n else make_cluster_auto(
+            make_cfg(width), model=stack, device=device)
+
+    _, st = _boot_ladder(make_cluster, n)
+    start = int(st.rnd)
+
+    # Senders, receivers and crash victims, disjoint, drawn from the
+    # whole id space but node 0 (the broadcast source below).
+    rng = np.random.default_rng(11)
+    cast = 1 + rng.choice(n - 1, size=2 * senders + crashes, replace=False)
+    snd, rcv = cast[:senders], cast[senders:2 * senders]
+    victims = cast[2 * senders:]
+    # Two causally-ordered sends per sender (seq 1 then 2 per edge).
+    nodes = np.repeat(snd, 2)
+    rnds = np.stack([np.full(senders, start + 2),
+                     np.full(senders, start + 6)], axis=1).reshape(-1)
+    dsts = np.repeat(rcv, 2)
+    st = st._replace(model=stack.replace_sub(
+        st.model, 1, chat.schedule_many(stack.sub(st.model, 1),
+                                        nodes, rnds, dsts)))
+    alive = st.faults.alive.clone()
+    alive[torch.as_tensor(victims, device=alive.device)] = False
+    st = st._replace(faults=st.faults._replace(alive=alive))
+
+    # Plumtree broadcast from node 0 over the healing overlay; the
+    # convergence wall is measured around the stepped loop.
+    st = _mark_bcast(st._replace(model=stack.replace_sub(
+        st.model, 0, plum.broadcast(stack.sub(st.model, 0), 0, 0, start))),
+        0, 0)
+    _sync(st)
+    t_conv = time.perf_counter()
+    st, conv = _converge(cl, st, cov, max_rounds)
+    _sync(st)
+    conv_wall = round(time.perf_counter() - t_conv, 3)
+    # let the p2p streams drain (replay cadence = retransmit timer)
+    for _ in range(max(1, (cfg.retransmit_every * 4) // K_PROG)):
+        st = cl.steps(st, K_PROG)
+    _sync(st)
+
+    logs = P2PChat.logs(stack.sub(st.model, 1))
+    ordered = delivered = 0
+    for r in rcv:
+        log = logs[int(r)]
+        delivered += len(log)
+        ordered += P2PChat.edge_fifo_ok(log)
+    rps = _throughput(cl, st)
+    return {"config": 5, "n": n, "senders": int(senders),
+            "crashes": int(crashes),
+            "convergence_rounds": (conv - start) if conv >= 0 else -1,
+            "rounds_per_sec": round(rps, 1),
+            "convergence_wall_sec": conv_wall if conv >= 0 else None,
+            "causal_deliveries": int(delivered),
+            "causal_expected": int(2 * senders),
+            "fifo_ok_receivers": int(ordered),
+            "n_receivers": int(senders)}
+
+
+ECHO_CSV_HEADER = ("backend,concurrency,parallelism,bytes,nummessages,"
+                   "latency,time,rounds,measured_wall_s,measured")
+
+
+def config6_echo(n=2, sizes_kb=(1024, 2048, 4096, 8192),
+                 concurrency=(1, 2, 4, 8), latencies_ms=(1, 20, 100),
+                 parallelism=1, num_messages=1000, bandwidth_mb_s=1000.0,
+                 csv_path=None, device=None) -> dict:
+    """The echo/latency matrix (the reference's ``performance_test``
+    sweep: size × concurrency × RTT): two nodes, ``concurrency``
+    ping-pong senders sharing the channel's ``parallelism`` lanes under
+    capacity enforcement, ``num_messages`` round trips each, every cell
+    its own run.  One round is one link traversal worth ``per_round_ms =
+    max(latency / 2, size / bandwidth)``, so a lane moves ``floor(bw ·
+    per_round_ms / size)`` messages a round.  ``rounds`` and
+    ``measured_wall_s`` are measured; ``time`` (rounds × per_round_ms in
+    µs) and ``lane_rate`` are derived.  ``csv_path`` gets the rows in the
+    reference's column layout."""
+    from partisan_tpu_torch.config import DEFAULT_CHANNEL, ChannelSpec
+    from partisan_tpu_torch.models.echo import CLIENT, Echo
+
+    rows = []
+    for conc in concurrency:
+        for size_kb in sizes_kb:
+            for lat in latencies_ms:
+                ser_ms = size_kb / 1024.0 / bandwidth_mb_s * 1000.0
+                per_round_ms = max(lat / 2.0, ser_ms)
+                lane_rate = max(1, int(
+                    bandwidth_mb_s * 1024.0 * per_round_ms / 1000.0
+                    // size_kb))
+                model = Echo(concurrency=conc, num_messages=num_messages)
+                cfg = Config(
+                    n_nodes=n, seed=11, peer_service_manager="static",
+                    channel_capacity=True, lane_rate=lane_rate,
+                    outbox_cap=max(32, 2 * conc),
+                    channels=(ChannelSpec(DEFAULT_CHANNEL,
+                                          parallelism=parallelism),))
+                cl = cluster_mod.Cluster(cfg, model=model, device=device)
+                t0 = time.perf_counter()
+                st, _ = cl.run_until(
+                    cl.init(), lambda s: model.done(s.model),
+                    max_rounds=2 * num_messages
+                    + 4 * num_messages * conc
+                    // max(parallelism * lane_rate, 1) + 50,
+                    check_every=50)
+                _sync(st)
+                wall = round(time.perf_counter() - t0, 3)
+                assert model.done(st.model), "echo run incomplete"
+                echoes = int(st.model.echoed[CLIENT].sum())
+                assert echoes == conc * num_messages, (echoes, conc)
+                rounds = int(st.rnd)
+                rows.append({
+                    "backend": "partisan_tpu", "concurrency": conc,
+                    "parallelism": parallelism, "bytes": size_kb * 1024,
+                    "nummessages": num_messages, "latency": lat,
+                    "lane_rate": lane_rate,
+                    "time": int(rounds * per_round_ms * 1000),
+                    "rounds": rounds, "measured_wall_s": wall,
+                    "measured": 1})
+    if csv_path:
+        cols = ECHO_CSV_HEADER.split(",")
+        with open(csv_path, "w") as f:
+            f.write(ECHO_CSV_HEADER + "\n")
+            for r in rows:
+                f.write(",".join(str(r[c]) for c in cols) + "\n")
+    return {"config": 6, "cells": len(rows), "measured_runs": len(rows),
+            "rows": rows}
+
+
 ALL = {
     1: config1_anti_entropy,
     2: config2_rumor,
     3: config3_plumtree_drop,
     4: config4_scamp_churn,
+    5: config5_causal_crash,
+    6: config6_echo,
 }
 
-DEFAULT_SIZES = {1: 16, 2: 1000, 3: 10_000, 4: 10_000}
+DEFAULT_SIZES = {1: 16, 2: 1000, 3: 10_000, 4: 10_000, 5: 100_000, 6: 2}
 
 
 def run_all(scale: float = 1.0, only=None, device=None) -> list[dict]:
-    """Configs 1-4 (or ``only``) at ``DEFAULT_SIZES * scale``."""
+    """Configs 1-6 (or ``only``) at ``DEFAULT_SIZES * scale``; config 6
+    runs ``max(50, int(1000 * scale))`` round trips per sender."""
     out = []
     for i, fn in ALL.items():
         if only and i not in only:
+            continue
+        if i == 6:
+            out.append(fn(num_messages=max(50, int(1000 * scale)),
+                          device=device))
             continue
         out.append(fn(n=max(8, int(DEFAULT_SIZES[i] * scale)),
                       device=device))
@@ -474,7 +642,7 @@ def main(argv=None) -> int:
     global HEALTH
     ap = argparse.ArgumentParser(
         prog="python -m partisan_tpu_torch.scenarios",
-        description="the scenario suite's configs 1-4, one JSON line each")
+        description="the scenario suite's configs 1-6, one JSON line each")
     ap.add_argument("--scale", type=float, default=1.0)
     ap.add_argument("--only", type=int, nargs="*", default=None,
                     choices=sorted(ALL))

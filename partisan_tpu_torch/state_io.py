@@ -10,8 +10,9 @@ numpy leaves.  ``flatten`` lists leaves in pytree order (fields in
 order, planes in word order, dict keys sorted, ``()`` contributing
 nothing), the order the reference's ``jax.tree_util`` flattening uses.
 
-The reference's uint32 OR-set views are int64 tensors in the port
-(``ops/orset.py``): they cross as uint32 numpy leaves both ways.
+The reference's uint32 OR-set views and causal-lane vector clocks are
+int64 tensors in the port (``ops/orset.py``, ``ops/vclock.py``): they
+cross as uint32 numpy leaves both ways.
 """
 
 from __future__ import annotations
@@ -19,12 +20,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from partisan_tpu_torch import cluster, delivery, device as device_mod
+from partisan_tpu_torch import channels, cluster, delivery
+from partisan_tpu_torch import device as device_mod
 from partisan_tpu_torch import faults, health
 from partisan_tpu_torch.managers import (client_server, fullmesh,
                                          hyparview, scamp, static)
-from partisan_tpu_torch.models import (anti_entropy, direct_mail, plumtree,
-                                       rumor_mongering)
+from partisan_tpu_torch.models import (anti_entropy, causal_chat,
+                                       direct_mail, echo, p2p_chat,
+                                       plumtree, rumor_mongering)
 from partisan_tpu_torch.ops import exchange
 from partisan_tpu_torch.ops.plane import Planes
 
@@ -35,11 +38,13 @@ _TYPES = {cls.__name__: cls for cls in (
     direct_mail.DirectMailState, delivery.DeliveryState,
     delivery.AckState, scamp.ScampState, static.StaticState,
     client_server.ClientServerState, anti_entropy.AntiEntropyState,
-    rumor_mongering.RumorState, health.HealthState)}
+    rumor_mongering.RumorState, health.HealthState, delivery.CausalLane,
+    delivery.P2PLane, channels.OutboxState, p2p_chat.P2PChatState,
+    causal_chat.ChatState, echo.EchoState)}
 
 # (NamedTuple, field) leaves the reference keeps as uint32 and the port
 # holds in int64.
-_UINT32_HELD = {("FullMeshState", "view")}
+_UINT32_HELD = {("FullMeshState", "view"), ("CausalLane", "clock")}
 
 
 def state_from_numpy(tree, device=None):

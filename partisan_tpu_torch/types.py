@@ -32,6 +32,8 @@ P0, P1, P2, P3 = HDR_WORDS, HDR_WORDS + 1, HDR_WORDS + 2, HDR_WORDS + 3
 F_ACK_REQUIRED = 1 << 0     # {ack, true} forward option
 F_RETRANSMISSION = 1 << 1   # re-sent by the retransmit timer
 F_CAUSAL = 1 << 2           # routed through a causality lane
+F_P2P_STAMPED = 1 << 3      # point-to-point causal record, already
+#                             stamped with its per-edge seq and epoch
 F_DELAY_RELEASED = 1 << 4   # released by the egress/ingress delay stage
 
 

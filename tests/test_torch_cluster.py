@@ -273,7 +273,13 @@ def test_port_imports_no_jax():
             "partisan_tpu_torch.managers.static, "
             "partisan_tpu_torch.managers.client_server, "
             "partisan_tpu_torch.models.anti_entropy, "
-            "partisan_tpu_torch.models.rumor_mongering; "
+            "partisan_tpu_torch.models.rumor_mongering, "
+            "partisan_tpu_torch.delivery, partisan_tpu_torch.channels, "
+            "partisan_tpu_torch.ops.vclock, "
+            "partisan_tpu_torch.models.stack, "
+            "partisan_tpu_torch.models.p2p_chat, "
+            "partisan_tpu_torch.models.causal_chat, "
+            "partisan_tpu_torch.models.echo; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'partisan_tpu' "
             "or m.startswith('partisan_tpu.')]; "
@@ -298,11 +304,11 @@ def test_entry_points_default_to_cuda():
 @pytest.mark.parametrize("override", [
     dict(metrics=True), dict(latency=True), dict(flight_rounds=8),
     dict(provenance=True), dict(plane_major=False),
-    dict(causal_labels=("chat",)), dict(channel_capacity=True),
+    dict(control=object()), dict(traffic=object()),
     dict(salt_operand=True),
     dict(elastic=True),
     dict(hyparview=THyParView(xbot=True)),
-    dict(causal_p2p_labels=("p2p",)),
+    dict(ingress=object()),
     dict(health=10, metrics=True),
     dict(peer_service_manager="xbot"),
 ])
@@ -319,6 +325,9 @@ def test_config_refuses_unported_options(override):
     dict(peer_service_manager="scamp_v2", membership_strategy="scamp_v2"),
     dict(peer_service_manager="static"),
     dict(peer_service_manager="client_server", cs_servers=3),
+    dict(causal_labels=("chat",), n_actors=8, causal_buf_cap=4),
+    dict(causal_p2p_labels=("p2p",), p2p_dst_cap=8, p2p_src_cap=8),
+    dict(channel_capacity=True, lane_rate=3, outbox_cap=8),
 ])
 def test_config_accepts_ported_options(override):
     from partisan_tpu_torch import managers

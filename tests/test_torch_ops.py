@@ -454,3 +454,74 @@ def test_stack_records_parity():
     want = jpl.stack_records([jplanes(a), jplanes(b)], axis=1)
     got = tpl.stack_records([tplanes(a), tplanes(b)], dim=1)
     assert_planes_equal(want, got)
+
+
+# ---- vector clocks and inbox merge ----------------------------------------
+
+def _clocks(rng, shape):
+    """uint32 clocks with values at and above 2**31 (and at the top of the
+    range, where an increment wraps)."""
+    big = rng.integers(2 ** 31 - 3, 2 ** 32, shape, dtype=np.int64)
+    small = rng.integers(0, 6, shape, dtype=np.int64)
+    return np.where(rng.random(shape) < 0.4, big, small).astype(np.uint32)
+
+
+@pytest.mark.parametrize("A", [1, 5, 64])
+def test_vclock_parity(A):
+    from partisan_tpu.ops import vclock as jvc
+    from partisan_tpu_torch.ops import vclock as tvc
+
+    rng = np.random.default_rng(A)
+    a, b = _clocks(rng, (40, A)), _clocks(rng, (40, A))
+    b[::3] = a[::3]                         # equal rows
+    b[1::3] = np.maximum(a[1::3], b[1::3])  # descending rows
+    actor = rng.integers(0, A, 40).astype(np.int32)
+    a[::4, actor[::4]] = 0xFFFFFFFF         # increments that wrap
+    ja, jb, ta, tb = jnp.asarray(a), jnp.asarray(b), t(u64(a)), t(u64(b))
+    jact, tact = jnp.asarray(actor), t(actor)
+    pairs = [
+        (jvc.fresh(A), tvc.fresh(A)),
+        (jvc.fresh_matrix(7, A), tvc.fresh_matrix(7, A)),
+        (jvc.increment(ja, jact[:, None]), tvc.increment(ta, tact[:, None])),
+        (jvc.increment(ja[0], jact[0]), tvc.increment(ta[0], int(actor[0]))),
+        (jvc.merge(ja, jb), tvc.merge(ta, tb)),
+        (jvc.descends(ja, jb), tvc.descends(ta, tb)),
+        (jvc.dominates(jb, ja), tvc.dominates(tb, ta)),
+        (jvc.concurrent(ja, jb), tvc.concurrent(ta, tb)),
+        (jvc.glb(ja, jb), tvc.glb(ta, tb)),
+        (jvc.get_counter(ja, jact), tvc.get_counter(ta, tact)),
+        (jvc.deliverable(ja, jb, jact), tvc.deliverable(ta, tb, tact)),
+        (jvc.deliverable(jvc.increment(jb, jact[:, None]), jb, jact),
+         tvc.deliverable(tvc.increment(tb, tact[:, None]), tb, tact)),
+    ]
+    for i, (want, got) in enumerate(pairs):
+        want = np.asarray(want)
+        if want.dtype == np.uint32:
+            want = want.astype(np.int64)
+        assert got.dtype == (torch.bool if want.dtype == np.bool_
+                             else torch.int64), i
+        np.testing.assert_array_equal(want, got.numpy(), err_msg=str(i))
+    assert bool(tvc.deliverable(tvc.increment(tb, tact[:, None]), tb,
+                                tact).all())
+
+
+@pytest.mark.parametrize("cap,bcap,live", [(16, 6, 0.5), (8, 20, 0.8),
+                                           (4, 4, 0.1)])
+def test_merge_inboxes_parity(cap, bcap, live):
+    rng = np.random.default_rng(cap * bcap)
+    n = 24
+    a = tx.route(tplanes(records(rng, (n, 12), n, live)), n, cap)
+    wb = records(rng, (n, bcap), n, live)
+    b_count = (wb[tt.W_KIND] != 0).sum(axis=1).astype(np.int32)
+    b_drops = rng.integers(0, 3, n).astype(np.int32)
+    ja = jx.Inbox(data=jplanes([w.numpy() for w in a.data]),
+                  count=jnp.asarray(a.count.numpy()),
+                  drops=jnp.asarray(a.drops.numpy()))
+    ref = jx.merge_inboxes(ja, jx.Inbox(data=jplanes(wb),
+                                        count=jnp.asarray(b_count),
+                                        drops=jnp.asarray(b_drops)))
+    got = tx.merge_inboxes(a, tx.Inbox(data=tplanes(wb), count=t(b_count),
+                                       drops=t(b_drops)))
+    assert_planes_equal(ref.data, got.data)
+    np.testing.assert_array_equal(np.asarray(ref.count), got.count.numpy())
+    np.testing.assert_array_equal(np.asarray(ref.drops), got.drops.numpy())
