@@ -14,8 +14,10 @@ Phases (any failure exits non-zero; no phase's failure is caught):
 3. kernel check: the interleave against its plain PyTorch version, bit
    for bit, at the main path's shape and a ragged one, then at ragged
    tails of each dtype, planes that are views at an odd element offset,
-   W in {1, 12, 16, 32}, an out= slice of a [3, ...] buffer and an
-   output that is not 16-byte aligned.  At the main shape: its time by
+   W in {1, 12, 16, 32}, W=13 at the Paxos record's dtypes (flat, and
+   at phase 16's [5, 7] planes into an out= slice of its [40, 5, 7, 13]
+   trace buffer as Cluster.record writes it), an out= slice of a [3, ...] buffer and an output that is
+   not 16-byte aligned.  At the main shape: its time by
    CUDA events (ms), its own device time per call from a torch.profiler
    window (device_ms), the host's wall per call of back-to-back calls
    with no synchronize (host_ms), the plain version's time, the time of
@@ -87,7 +89,43 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    seconds, and a profiled window of one cell's rounds.  Kernel counts
    are reset just before phases 11, 12 and 13 and read just after each
    (these paths launch neither kernel);
-14. the kernels line, the card line, and last the result line
+14. app parity, small: the setups of tests/test_paxos.py (n=5: one
+   proposer; competing proposers), tests/test_commit.py (n=6, each
+   variant: fault-free; a partitioned participant; two coordinators of
+   one slot, so that every node takes two PREPAREs for it in one round
+   and must keep the later inbox slot's) and
+   tests/test_alsberg.py (n=5, acked and unacked: a write, then a
+   same-round write collision) on the card and on the CPU, every state
+   leaf identical after every round;
+15. the property harness on the card and on the CPU: tests/test_paxos.py's
+   two runs (PaxosSystem at the fault budget; the unsafe_adopt canary,
+   which must fail and shrink to at most 3 proposals), tests/test_prop.py's
+   ReliableBroadcast (acked) and PrimaryBackup runs and AtomicCommit CTP
+   at seed 3: every RunResult field and render() identical, the cached
+   boot state unchanged; per run on the card its wall and executions
+   (runs and shrink trials) per second, and one more execution of its
+   script profiled as phase 17's windows are (launches, host reads,
+   copies, device time, idle share);
+16. Filibuster over Paxos (tests/test_paxos.py's checker: n=5, seed 11,
+   horizon 40, max_faults 1, max_executions 60) on the card and on the
+   CPU: the Result identical (PASSED, 60 executions, 0 pruned, 95
+   candidates) and every record call's [40, 5, 7, 13] trace identical,
+   the card's written by the interleave kernel and the CPU's by its
+   plain version; counts reset just before and read just after the card's
+   search, the interleave launched 40 times per record call;
+   executions per second split into device rounds, trace copy and host
+   decode;
+17. the traffic suite's app models at n=48 (scenarios.app_model: Paxos,
+   Lampson 2PC, Alsberg-Day with the reference's Config extras and app
+   script, seed 29, 240 rounds, no traffic plane) on the card, each
+   final state identical to the CPU's: Paxos decides both decrees at 48
+   of 48 nodes with agreement, 2PC commits 96 (node, slot) pairs with
+   agreement, Alsberg-Day acks both writes and replicates key 0; each
+   model's wall, ms per round, and a K_PROG-round window from its first
+   app event under torch.profiler (launches, host reads, device time,
+   idle share).  Kernel counts are reset just before phases 14, 15 and
+   17 and read just after each;
+18. the kernels line, the card line, and last the result line
    {"ok": true, "device": {...}}.
 """
 
@@ -112,6 +150,10 @@ FULL_SCHED_WIDTH = 80       # >= the bench path's 77-slot emission width
 FULL_MAX_EXECUTIONS = 4
 N_CONFIG5 = 100_000         # the reference's DEFAULT_SIZES[5]
 ECHO_MESSAGES = 50          # run_all's floor for config 6
+PAXOS_FB_HORIZON = 40       # tests/test_paxos.py's Filibuster checker
+PAXOS_FB_SENT = (5, 7)      # its record's [n, emitted slots] per round
+N_APP = 48                  # the traffic suite's app-model size
+APP_ROUNDS = 240
 
 
 def log(obj) -> None:
@@ -250,11 +292,14 @@ def kernel_check(shape, dtypes, seed: int) -> dict:
     }
 
 
-def interleave_edges(bench_dtypes, seed: int) -> list:
+def interleave_edges(bench_dtypes, paxos_dtypes, seed: int) -> list:
     """The interleave, bit for bit, where its edge paths run: ragged
     tails of each dtype, planes that are views at an odd element offset,
-    W in {1, 12, 16, 32}, an out= slice of a [3, ...] buffer (as
-    Cluster.record passes) and an output that is not 16-byte aligned."""
+    W in {1, 12, 16, 32}, W=13 at the Paxos record's dtypes (flat, and
+    at phase 16's shape into one round's slice of its [40, 5, 7, 13]
+    trace buffer), an out=
+    slice of a [3, ...] buffer (as Cluster.record passes) and an output
+    that is not 16-byte aligned."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     mixed = [torch.int8, torch.int16, torch.int32]
     out = []
@@ -271,6 +316,16 @@ def interleave_edges(bench_dtypes, seed: int) -> list:
     for W in (1, 12, 16, 32):
         ws = [cuda_random((70001,), mixed[i % 3], gen) for i in range(W)]
         out.append({"case": f"W={W}", **interleave_exact(ws)})
+    ws = [cuda_random((70001,), dt, gen) for dt in paxos_dtypes]
+    out.append({"case": "W=13, Paxos dtypes", **interleave_exact(ws)})
+    ws = [cuda_random(PAXOS_FB_SENT, dt, gen) for dt in paxos_dtypes]
+    buf = torch.full((PAXOS_FB_HORIZON,) + PAXOS_FB_SENT + (13,), -7,
+                     dtype=torch.int32, device="cuda")
+    res = interleave_exact(ws, out=buf[7])
+    if not bool((buf[:7] == -7).all() & (buf[8:] == -7).all()):
+        raise AssertionError("interleave into out=buf[7] wrote elsewhere")
+    out.append({"case": f"W=13, Paxos dtypes, out=buf[7] of "
+                        f"{list(buf.shape)}", **res})
     shape = (1000, 77)
     ws = [cuda_random(shape, dt, gen) for dt in bench_dtypes]
     buf = torch.full((3,) + shape + (16,), -7, dtype=torch.int32,
@@ -426,10 +481,36 @@ def omission_record(device: str, boot_state):
     return cl.record(st, 5)
 
 
+def timed_cluster(timing: dict, dev, traces: list | None = None):
+    """A Cluster class whose ``record`` counts its calls and times the
+    device rounds (ending in a synchronize) apart from the trace's copy to
+    the host, into ``timing`` (keys records, record_s, copy_s); with
+    ``traces``, each call's trace (on the host) is appended to it."""
+    from partisan_tpu_torch import cluster as cluster_mod
+
+    class TimedCluster(cluster_mod.Cluster):
+        def record(self, state, k):
+            t0 = time.perf_counter()
+            st, tr = super().record(state, k)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            t1 = time.perf_counter()
+            tr = tr._replace(sent=tr.sent.cpu(), dropped=tr.dropped.cpu(),
+                             rnd=tr.rnd.cpu())
+            timing["records"] += 1
+            timing["record_s"] += t1 - t0
+            timing["copy_s"] += time.perf_counter() - t1
+            if traces is not None:
+                traces.append(tr)
+            return st, tr
+
+    return TimedCluster
+
+
 def filibuster_full(boot_state) -> dict:
     """The Filibuster path (phase 8) on the booted state's device and
     width."""
-    from partisan_tpu_torch import cluster as cluster_mod, filibuster
+    from partisan_tpu_torch import filibuster
     from partisan_tpu_torch import kernels, scenarios as sc
     from partisan_tpu_torch.models.plumtree import Plumtree
     from partisan_tpu_torch.types import MsgKind
@@ -439,26 +520,7 @@ def filibuster_full(boot_state) -> dict:
     start = int(boot_state.rnd)
     model = Plumtree()
     timing = {"records": 0, "record_s": 0.0, "copy_s": 0.0}
-
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-
-    class TimedCluster(cluster_mod.Cluster):
-        """Counts record calls and times the device rounds (ending in a
-        synchronize) apart from the trace's copy to the host."""
-
-        def record(self, state, k):
-            t0 = time.perf_counter()
-            st, tr = super().record(state, k)
-            sync()
-            t1 = time.perf_counter()
-            tr = tr._replace(sent=tr.sent.cpu(), dropped=tr.dropped.cpu(),
-                             rnd=tr.rnd.cpu())
-            timing["records"] += 1
-            timing["record_s"] += t1 - t0
-            timing["copy_s"] += time.perf_counter() - t1
-            return st, tr
+    TimedCluster = timed_cluster(timing, dev)
 
     def build(interp):
         cl = TimedCluster(sc.bench_config(n), model=model, interpose=interp,
@@ -583,8 +645,10 @@ def strip_rate(d: dict) -> dict:
 def round_profile(fn, rounds: int) -> dict:
     """Per round of ``fn`` (which runs ``rounds`` rounds): the wall of a
     bare call, then under torch.profiler the kernels' summed device time,
-    the kernel launches and the host reads (``aten::_local_scalar_dense``:
-    every ``bool()``/``int()`` of a card tensor)."""
+    the kernel launches (the copies among them), the host reads
+    (``aten::_local_scalar_dense``: every ``bool()``/``int()`` of a card
+    tensor) and the copies device -> host and host -> device (each a
+    ``.cpu()``, or a Python number turned into a card tensor)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -600,13 +664,18 @@ def round_profile(fn, rounds: int) -> dict:
     kern = [e for e in ev if _self_device_us(e) > 0
             and str(getattr(e, "device_type", "")).endswith("CUDA")]
     busy = sum(_self_device_us(e) for e in kern) / 1e6
+
+    def per_round(events, pred):
+        return sum(e.count for e in events if pred(e.key)) / rounds
+
     return {"rounds": rounds, "wall_ms_per_round": wall * 1e3 / rounds,
             "device_ms_per_round": busy * 1e3 / rounds,
             "device_idle_share": max(0.0, 1.0 - busy / wall),
             "launches_per_round": sum(e.count for e in kern) / rounds,
-            "host_reads_per_round": sum(
-                e.count for e in ev if e.key == "aten::_local_scalar_dense")
-            / rounds}
+            "host_reads_per_round": per_round(
+                ev, lambda k: k == "aten::_local_scalar_dense"),
+            "copies_dtoh_per_round": per_round(kern, lambda k: "DtoH" in k),
+            "copies_htod_per_round": per_round(kern, lambda k: "HtoD" in k)}
 
 
 def lane_setups(device: str) -> dict:
@@ -724,7 +793,6 @@ def config6_full(card: str) -> dict:
     from partisan_tpu_torch.config import DEFAULT_CHANNEL, ChannelSpec, \
         Config
     from partisan_tpu_torch.models.echo import Echo
-    from partisan_tpu_torch.ops import rng
 
     t0 = time.perf_counter()
     res = sc.config6_echo(num_messages=ECHO_MESSAGES)
@@ -741,8 +809,7 @@ def config6_full(card: str) -> dict:
     st = cl.steps(cl.init(), sc.K_PROG)
     window = round_profile(lambda: cl.steps(st, sc.K_PROG), sc.K_PROG)
     # the round's per-node threefry keys alone (static + Echo read none)
-    gids = cl.comm.local_ids()
-    keys = round_profile(lambda: rng.node_keys(cl.cfg.seed, st.rnd, gids), 1)
+    keys = node_keys_profile(cl, st)
     return {"result": res, "wall_s": wall, "rounds": rounds,
             "s_per_round": wall / rounds, "window_c8": window,
             "window_node_keys": keys, "card": card}
@@ -823,6 +890,354 @@ def scenario_suite(card: str) -> list:
     return out
 
 
+def app_setups(device: str) -> dict:
+    """Setups of tests/test_paxos.py, tests/test_commit.py and
+    tests/test_alsberg.py on ``device``, with the state after every
+    round: Paxos (n=5, seed 7, msg_words 13: one proposer, 5 + 12 rounds;
+    two competing proposers, 5 + 60 rounds), the commit engine (n=6, seed
+    11, each variant: fault-free, 12 rounds; node 5 partitioned from the
+    coordinator, 25 rounds; nodes 1 and 4 coordinating one slot, so that
+every node gets two PREPAREs for it in one round, 12 rounds) and
+Alsberg-Day (n=5, seed 5, acked and
+    unacked: a write, 8 rounds, then two clients writing one key in one
+    round, 12 rounds)."""
+    from partisan_tpu_torch import faults
+    from partisan_tpu_torch.cluster import Cluster
+    from partisan_tpu_torch.config import Config
+    from partisan_tpu_torch.models import alsberg_day, commit, paxos
+
+    def run(cfg, model, plan):
+        cl = Cluster(cfg, model=model, device=device)
+        st = cl.init()
+        m = st.manager
+        for i in range(1, cfg.n_nodes):
+            m = cl.manager.join(cfg, m, i, 0)
+        st = st._replace(manager=m)
+        states = []
+        for item in plan:
+            if callable(item):
+                st = item(st)
+                continue
+            for _ in range(item):
+                st = cl.step(st)
+                states.append(st)
+        return states
+
+    out = {}
+    for label, props, rounds in (("paxos_single", [(2, 0, 111)], 12),
+                                 ("paxos_competing",
+                                  [(1, 0, 100), (3, 0, 300)], 60)):
+        model = paxos.Paxos(slots=2)
+        out[label] = run(
+            Config(n_nodes=5, seed=7, msg_words=13, inbox_cap=64), model,
+            [5] + [lambda s, p=p, m=model: s._replace(model=m.propose(
+                s.model, *p, int(s.rnd), 5)) for p in props] + [rounds])
+    members = torch.ones(6, dtype=torch.bool, device=device)
+    for variant in commit.CommitProtocol.VARIANTS:
+        for label, cut, begins, rounds in (
+                ("fault_free", False, [(2, 77)], 12),
+                ("partitioned", True, [(2, 4)], 25),
+                ("two_prepares", False, [(1, 10), (4, 20)], 12)):
+            model = commit.CommitProtocol(variant, slots=2)
+
+            def start(s, m=model, cut=cut, begins=begins):
+                if cut:
+                    s = s._replace(faults=faults.inject_partition(
+                        s.faults, [2], [5]))
+                mm = s.model
+                for coord, value in begins:
+                    mm = m.begin(mm, coord, 0, value, members, s.rnd)
+                return s._replace(model=mm)
+
+            out[f"{variant}_{label}"] = run(
+                Config(n_nodes=6, seed=11, inbox_cap=64, emit_cap=16),
+                model, [start, rounds])
+    for acked in (False, True):
+        model = alsberg_day.AlsbergDay(acked=acked, keys=4)
+
+        def write(c, k, v, m=model):
+            return lambda s: s._replace(model=m.write(s.model, c, k, v))
+
+        out[f"alsberg_{'acked' if acked else 'plain'}"] = run(
+            Config(n_nodes=5, seed=5, inbox_cap=64, emit_cap=16,
+                   ack_cap=32 if acked else 0), model,
+            [write(3, 1, 42), 8, write(1, 2, 5), write(3, 2, 9), 12])
+    return out
+
+
+def last_prepares(st) -> list:
+    """Per node, ``[sender, value]`` of the last PREPARE for slot 0 in its
+    inbox; each node must hold two, so that the scatter has a duplicate."""
+    from partisan_tpu_torch import types as T
+    from partisan_tpu_torch.models import commit
+
+    d = st.inbox.data
+    prep = ((d[T.W_KIND] == int(T.MsgKind.APP))
+            & (d[T.P0] == commit.OP_PREPARE) & (d[T.P1] == 0)).cpu()
+    out = []
+    for node in range(prep.shape[0]):
+        idx = prep[node].nonzero().flatten().tolist()
+        if len(idx) != 2:
+            raise AssertionError(f"node {node}: PREPAREs at {idx}")
+        out.append([int(d[T.W_SRC][node, idx[-1]]),
+                    int(d[T.P2][node, idx[-1]])])
+    return out
+
+
+def app_parity() -> dict:
+    """Phase 14: the app-model setups, card against CPU, every leaf after
+    every round."""
+    from partisan_tpu_torch.models import commit, paxos
+
+    g, c = app_setups("cuda"), app_setups("cpu")
+    out = {}
+    for label in g:
+        for r, (a, b) in enumerate(zip(g[label], c[label])):
+            n_leaves = assert_identical(a, b, f"{label} round {r}")
+        m = g[label][-1].model
+        facts = {"rounds": len(g[label]), "leaves": n_leaves}
+        if label.startswith("paxos"):
+            facts["decided_0"] = paxos.Paxos.decided_nodes(m, 0)
+            ok = facts["decided_0"] == list(range(5))
+        elif label.startswith("alsberg"):
+            facts["store_key2"] = int(m.store[0, 2])
+            ok = bool(m.req_ok[3, 1]) and bool((m.store[:, 1] == 42).all())
+        elif label.endswith("two_prepares"):
+            facts["prepare_winners"] = last_prepares(g[label][0])
+            m1 = g[label][1].model          # the round the PREPAREs land
+            got = [[int(m1.p_coord[i, 0]), int(m1.p_value[i, 0])]
+                   for i in range(6)]
+            ok = facts["prepare_winners"] == got
+        else:
+            facts["outcome"] = int(m.c_outcome[2, 0])
+            ok = facts["outcome"] == (2 if "partitioned" in label else 1)
+            ok = ok and bool(commit.CommitProtocol.agreement(m))
+        if not ok:
+            raise AssertionError(f"{label}: {facts}")
+        out[label] = facts
+    return out
+
+
+def harness_specs(pm, pr) -> list:
+    """The harness runs of phase 15: ``(label, system, fault model,
+    Harness keywords)``."""
+    return [
+        ("paxos_fault_budget", pm.PaxosSystem(n_nodes=5, slots=2, seed=3),
+         pr.CrashFaultModel(tolerance=1),
+         dict(scheduler="finite_fault", n_runs=4, n_commands=5, seed=21)),
+        ("paxos_unsafe_adopt",
+         pm.PaxosSystem(n_nodes=5, slots=1, seed=3, unsafe_adopt=True,
+                        check_termination=False), None,
+         dict(n_runs=8, n_commands=6, seed=5)),
+        ("reliable_broadcast_acked",
+         pm.ReliableBroadcastSystem(seed=7, acked=True),
+         pr.CrashFaultModel(tolerance=2, allow_crash=False),
+         dict(scheduler="finite_fault", n_runs=3, n_commands=6, seed=101)),
+        ("primary_backup", pm.PrimaryBackupSystem(seed=5, acked=True), None,
+         dict(scheduler="default", n_runs=2, n_commands=5, seed=40)),
+        ("atomic_commit_ctp",
+         pm.AtomicCommitSystem(variant="bernstein_ctp", seed=3),
+         pr.CrashFaultModel(tolerance=1, allow_crash=False),
+         dict(scheduler="finite_fault", n_runs=4, n_commands=5, seed=900)),
+    ]
+
+
+def harness_runs(device: str) -> dict:
+    """The harness runs on ``device``: each run's RunResult fields, and on
+    the card its wall, executions and host reads; the cached boot state
+    must be unchanged by the run."""
+    from partisan_tpu_torch import prop, prop_models
+
+    out = {}
+    for label, system, fm, kw in harness_specs(prop_models, prop):
+        system.device = device
+        before = state_leaves(system.build()[1])
+        calls = [0]
+
+        class Counting(prop.Harness):
+            def _execute(self, script):
+                calls[0] += 1
+                return super()._execute(script)
+
+        h = Counting(system=system, fault_model=fm, **kw)
+        t0 = time.perf_counter()
+        res = h.run()
+        wall = time.perf_counter() - t0
+        execs = calls[0]
+        for (p, a), (_, b) in zip(before, state_leaves(system._st0)):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"{label}: the run wrote into the "
+                                     f"cached boot state ({p})")
+        fields = {"ok": res.ok, "seed": res.seed,
+                  "commands": [repr(c) for c in res.commands],
+                  "shrunk": None if res.shrunk is None
+                  else [repr(c) for c in res.shrunk],
+                  "render": res.render()}
+        out[label] = {"result": fields, "wall_s": wall,
+                      "executions": execs, "executions_per_s": execs / wall}
+        if device == "cuda":
+            # one more execution of the run's script, profiled as a round
+            out[label]["per_execution"] = round_profile(
+                lambda: h._execute(res.commands), 1)
+    return out
+
+
+def harness_phase(card: str) -> dict:
+    """Phase 15: the harness runs, card against CPU."""
+    g, c = harness_runs("cuda"), harness_runs("cpu")
+    for label in g:
+        if g[label]["result"] != c[label]["result"]:
+            raise AssertionError(f"{label}: card {g[label]['result']} != "
+                                 f"CPU {c[label]['result']}")
+        g[label]["cpu_wall_s"] = c[label]["wall_s"]
+    for label, res in g.items():
+        r = res["result"]
+        if label == "paxos_unsafe_adopt":
+            if r["ok"] or not r["shrunk"] or len(r["shrunk"]) > 3 \
+                    or not all(x.startswith("propose") for x in r["shrunk"]):
+                raise AssertionError(f"the unsafe_adopt canary: {r}")
+        elif not r["ok"]:
+            raise AssertionError(f"{label}: {r['render']}")
+    return {"runs": g, "card": card}
+
+
+def filibuster_paxos(device: str) -> dict:
+    """Phase 16 on ``device``: tests/test_paxos.py's Filibuster search
+    over the proposal exchange, with the record calls timed and every
+    record call's trace kept (key ``traces``)."""
+    from partisan_tpu_torch import filibuster, kernels
+    from partisan_tpu_torch import scenarios as sc
+    from partisan_tpu_torch.config import Config
+    from partisan_tpu_torch.models.paxos import Paxos
+    from partisan_tpu_torch.types import MsgKind
+
+    dev = torch.device(device)
+    model = Paxos(slots=1, retry_rounds=6)
+    timing = {"records": 0, "record_s": 0.0, "copy_s": 0.0}
+    traces = []
+    TimedCluster = timed_cluster(timing, dev, traces)
+    built = []
+
+    def build(interp):
+        cfg = Config(n_nodes=5, seed=11, msg_words=13, inbox_cap=64)
+        cl = TimedCluster(cfg, model=model, interpose=interp, device=dev)
+        st = cl.init()
+        m = st.manager
+        for i in range(1, 5):
+            m = cl.manager.join(cfg, m, i, 0)
+        st = cl.steps(st._replace(manager=m), 5)
+        built.append((cl, st._replace(model=model.propose(
+            st.model, 2, 0, 55, int(st.rnd), 5))))
+        return built[-1]
+
+    def assertion(cl, st):
+        return model.agreement(st.model) \
+            and len(model.decided_nodes(st.model, 0)) == 5
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = filibuster.Checker(
+        build=build, horizon=PAXOS_FB_HORIZON, assertion=assertion,
+        candidate=lambda e: e.kind == MsgKind.APP, max_faults=1,
+        max_executions=60).run()
+    wall = time.perf_counter() - t0
+    counts = dict(kernels.launches)
+    timing = dict(timing)          # the windows below record again
+    traces = list(traces)
+    windows = {}
+    if dev.type == "cuda":
+        # one execution's record path (the golden run's state and
+        # zeroed schedule) and the round's per-node keys alone
+        cl, st = built[0]
+        windows = {"window": round_profile(
+            lambda: cl.record(st, sc.K_PROG), sc.K_PROG),
+            "window_node_keys": node_keys_profile(cl, st)}
+    return {"result": result_fields(res), "launches": counts,
+            "traces": traces,
+            **windows, "record_calls": timing["records"],
+            "trace_shape": list(res.base_trace.sent.shape), "wall_s": wall,
+            "executions_per_s": res.executions / wall,
+            "device_rounds_s": timing["record_s"],
+            "trace_copy_s": timing["copy_s"],
+            "host_decode_s": wall - timing["record_s"] - timing["copy_s"]}
+
+
+def filibuster_paxos_phase(card: str) -> dict:
+    """Phase 16: the card's search against the CPU's, and every record
+    call's trace (the card's through the interleave kernel, the CPU's
+    through its plain version, from equal states) bit for bit."""
+    g, c = filibuster_paxos("cuda"), filibuster_paxos("cpu")
+    gt, ct = g.pop("traces"), c.pop("traces")
+    if len(gt) != len(ct) or len(gt) != g["record_calls"]:
+        raise AssertionError(f"Filibuster over Paxos: {len(gt)} traces on "
+                             f"the card, {len(ct)} on the CPU")
+    for i, (a, b) in enumerate(zip(gt, ct)):
+        for f in ("rnd", "sent", "dropped"):
+            if not torch.equal(getattr(a, f), getattr(b, f)):
+                raise AssertionError(f"Filibuster over Paxos: record call "
+                                     f"{i}'s {f} differs, card vs CPU")
+    if g["result"] != c["result"]:
+        raise AssertionError(f"Filibuster over Paxos: card {g['result']} "
+                             f"!= CPU {c['result']}")
+    want = "filibuster: PASSED — 60 executions, 0 pruned, 95 candidates"
+    if g["result"]["render"] != want:
+        raise AssertionError(f"Filibuster over Paxos: {g['result']}")
+    if g["launches"]["interleave"] != PAXOS_FB_HORIZON * g["record_calls"] \
+            or g["trace_shape"] != [PAXOS_FB_HORIZON, *PAXOS_FB_SENT, 13]:
+        raise AssertionError(
+            f"Filibuster over Paxos: {g['launches']} launches over "
+            f"{g['record_calls']} record calls, trace {g['trace_shape']}")
+    return {**g, "traces_equal": len(gt), "cpu_wall_s": c["wall_s"],
+            "card": card}
+
+
+def app_models_full(card: str) -> dict:
+    """Phase 17: the three app models at n=48 on the card, each final
+    state against the CPU's, with a profiled window from the first app
+    event."""
+    from partisan_tpu_torch import scenarios as sc
+
+    out = {}
+    for name in sc.APP_MODELS:
+        run = sc.app_model(name, n=N_APP, rounds=APP_ROUNDS)
+        cpu = sc.app_model(name, n=N_APP, rounds=APP_ROUNDS, device="cpu")
+        n_leaves = assert_identical(run["state"], cpu["state"],
+                                    f"{name} n={N_APP}")
+        facts = {k: v for k, v in run.items()
+                 if k not in ("cluster", "state")}
+        want = {"paxos": {"decided_0": N_APP, "decided_1": N_APP},
+                "commit": {"agreement": True, "commits": 2 * N_APP},
+                "alsberg_day": {"acked": True, "replicated": True}}[name]
+        if not facts["app_ok"] or any(facts[k] != v for k, v in want.items()):
+            raise AssertionError(f"{name} at n={N_APP}: {facts}")
+        cl = run["cluster"]
+        _, _, boot, drive, _ = sc._traffic_build(name, N_APP)
+        st = boot(cl)
+        start = int(st.rnd)
+        st, events = drive(st, start, APP_ROUNDS)
+        off, first = events[0]
+        st = first(cl, sc.run_script(cl, st, events, start, off), start + off)
+        out[name] = {**facts, "leaves": n_leaves,
+                     "wall_s": facts["boot_s"] + facts["run_s"],
+                     "ms_per_round": facts["run_s"] * 1e3 / APP_ROUNDS,
+                     "cpu_run_s": cpu["run_s"],
+                     "window": round_profile(lambda: cl.steps(st, sc.K_PROG),
+                                             sc.K_PROG),
+                     "window_node_keys": node_keys_profile(cl, st),
+                     "card": card}
+    return out
+
+
+def node_keys_profile(cl, st) -> dict:
+    """The round's per-node threefry keys alone (``rng.node_keys``), which
+    none of the app models reads."""
+    from partisan_tpu_torch.ops import rng
+
+    gids = cl.comm.local_ids()
+    return round_profile(lambda: rng.node_keys(cl.cfg.seed, st.rnd, gids),
+                         1)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -830,6 +1245,7 @@ def main() -> int:
         return 2
     from partisan_tpu_torch import kernels, probe
     from partisan_tpu_torch import scenarios as sc
+    from partisan_tpu_torch.config import Config
     from partisan_tpu_torch.ops import plane as plane_ops
 
     t_all = time.perf_counter()
@@ -863,7 +1279,8 @@ def main() -> int:
     ragged = kernel_check((4099, 13), bench_dtypes[:12], seed=2)
     log({"phase": "kernel_check", "kernel": "interleave", "card": card,
          **ragged})
-    edges = interleave_edges(bench_dtypes, seed=6)
+    paxos_dtypes = list(Config(n_nodes=5, msg_words=13).wire_dtypes)
+    edges = interleave_edges(bench_dtypes, paxos_dtypes, seed=6)
     log({"phase": "kernel_edges", "kernel": "interleave", "cases": edges})
 
     # 4. GPU vs CPU parity at n=512
@@ -1016,10 +1433,42 @@ def main() -> int:
     c6_counts = dict(kernels.launches)
     log({"phase": "config6", "num_messages": ECHO_MESSAGES, **c6,
          "launches": c6_counts})
-    new_paths = {"causal_parity": lp_counts, "config5": c5_counts,
-                 "config6": c6_counts}
 
-    # 14. kernels line, card line, result line
+    # 14. app parity, small: card against CPU
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    ap = app_parity()
+    ap_counts = dict(kernels.launches)
+    log({"phase": "app_parity", **ap, "launches": ap_counts,
+         "seconds": time.perf_counter() - t0})
+
+    # 15. the property harness, card against CPU
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    hp = harness_phase(card)
+    hp_counts = dict(kernels.launches)
+    log({"phase": "harness", **hp, "launches": hp_counts,
+         "seconds": time.perf_counter() - t0})
+
+    # 16. Filibuster over Paxos, counts reset inside around the card's run
+    t0 = time.perf_counter()
+    fp = filibuster_paxos_phase(card)
+    log({"phase": "filibuster_paxos", **fp,
+         "seconds": time.perf_counter() - t0})
+
+    # 17. the app models at n=48, counts reset just before
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    am = app_models_full(card)
+    am_counts = dict(kernels.launches)
+    log({"phase": "app_models", "n": N_APP, "rounds": APP_ROUNDS, **am,
+         "launches": am_counts, "seconds": time.perf_counter() - t0})
+    new_paths = {"causal_parity": lp_counts, "config5": c5_counts,
+                 "config6": c6_counts, "app_parity": ap_counts,
+                 "harness": hp_counts, "filibuster_paxos": fp["launches"],
+                 "app_models": am_counts}
+
+    # 18. kernels line, card line, result line
     timing_keys = ("ms", "device_ms", "host_ms", "plain_ms", "library_ms",
                    "bound_ms")
     log({"kernels": [{

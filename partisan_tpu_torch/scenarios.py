@@ -13,6 +13,9 @@ conformance check, and bench.py's main path.
   width-operand ladder; the convergence loop polls coverage, or the
   health digest's one int32 when the plane's cadence divides
   ``K_PROG``; the steady-state throughput instrument.
+- :func:`app_model` runs the traffic suite's app models (Paxos, Lampson
+  2PC, Alsberg-Day) through their scripted workload with no traffic
+  plane.
 - :func:`bench_config` and :func:`bench_broadcast` are bench.py's main
   path (its configuration with every plane off, the ladder, one
   broadcast stepped to coverage), shared by chip_smoke.py and the
@@ -590,6 +593,145 @@ def run_all(scale: float = 1.0, only=None, device=None) -> list[dict]:
         out.append(fn(n=max(8, int(DEFAULT_SIZES[i] * scale)),
                       device=device))
     return out
+
+
+# The traffic suite's app models (``partisan_tpu/scenarios.py``
+# ``TRAFFIC_MODELS``) whose app half is ported: the model, its Config
+# extras, its boot and its scripted workload.  The traffic plane itself
+# (``traffic_scenario``) is not ported yet.
+APP_MODELS = ("paxos", "commit", "alsberg_day")
+
+
+def _traffic_build(model_name: str, n: int):
+    """``(model, extras, boot, drive, check)`` of one app model, as the
+    reference's ``_traffic_build`` builds them.  ``drive(st, start,
+    rounds)`` returns the state and the app script, ``((offset, fn),
+    ...)`` with ``fn(cluster, state, rnd) -> state`` applied at round
+    ``start + offset``; ``check(st)`` returns ``(ok, facts)``."""
+    def crowd(rounds):
+        # the second script event, mid-flash-crowd, on the K_PROG grain
+        return rounds // 4 // K_PROG * K_PROG + K_PROG
+
+    def boot(cl):
+        return _boot_fullmesh(cl, n)
+
+    if model_name == "paxos":
+        from partisan_tpu_torch.models.paxos import Paxos
+
+        model = Paxos(slots=2)
+        extras = dict(msg_words=13, inbox_cap=96)
+
+        def drive(st, start, rounds):
+            def prop(slot, node, value, off):
+                def fn(cluster, state, rnd):
+                    return state._replace(model=model.propose(
+                        state.model, node, slot, value, rnd, n))
+                return (off, fn)
+            # decree 0 proposed calm, decree 1 by two rival proposers at
+            # the same boundary
+            return st, (prop(0, 1, 111, K_PROG),
+                        prop(1, 2, 222, crowd(rounds)),
+                        prop(1, 3, 333, crowd(rounds)))
+
+        def check(st):
+            decided0 = len(model.decided_nodes(st.model, 0))
+            decided1 = len(model.decided_nodes(st.model, 1))
+            return bool(model.agreement(st.model)
+                        and decided0 > n // 2 and decided1 > n // 2), \
+                {"decided_0": int(decided0), "decided_1": int(decided1)}
+
+        return model, extras, boot, drive, check
+
+    if model_name == "commit":
+        from partisan_tpu_torch.models import commit as commit_mod
+
+        model = commit_mod.CommitProtocol("lampson_2pc", slots=2)
+        extras = dict(inbox_cap=96, emit_cap=16)
+
+        def drive(st, start, rounds):
+            def begin(slot, coord, value, off):
+                def fn(cluster, state, rnd):
+                    return state._replace(model=model.begin(
+                        state.model, coord, slot, value,
+                        state.faults.alive, rnd))
+                return (off, fn)
+            return st, (begin(0, 0, 5, K_PROG),
+                        begin(1, 1, 9, crowd(rounds)))
+
+        def check(st):
+            agree = bool(model.agreement(st.model))
+            delivered = int((st.model.p_status
+                             == commit_mod.P_COMMIT).sum())
+            return agree and delivered > 0, \
+                {"agreement": agree, "commits": delivered}
+
+        return model, extras, boot, drive, check
+
+    if model_name == "alsberg_day":
+        from partisan_tpu_torch.models.alsberg_day import AlsbergDay
+
+        model = AlsbergDay(keys=4)
+        extras = dict(inbox_cap=96, emit_cap=16)
+
+        def drive(st, start, rounds):
+            def write(client, key, value, off):
+                def fn(cluster, state, rnd):
+                    return state._replace(model=model.write(
+                        state.model, client, key, value))
+                return (off, fn)
+            return st, (write(5, 0, 42, K_PROG),
+                        write(6, 1, 43, crowd(rounds)))
+
+        def check(st):
+            ok = bool(st.model.req_ok[5, 0]) and bool(st.model.req_ok[6, 1])
+            rep = bool(AlsbergDay.replicated(st.model, 0, st.faults.alive))
+            return ok and rep, {"acked": ok, "replicated": rep}
+
+        return model, extras, boot, drive, check
+
+    raise ValueError(f"unknown app model {model_name!r}; have "
+                     f"{APP_MODELS}")
+
+
+def run_script(cl, st, events, start: int, rounds: int):
+    """Step ``rounds`` rounds from round ``start``, applying each
+    ``(offset, fn)`` of ``events`` at round ``start + offset`` (before
+    that round runs); rounds between events run as one ``steps`` call."""
+    at = sorted({off for off, _ in events if 0 <= off < rounds})
+    done = 0
+    for off in at + [rounds]:
+        st = cl.steps(st, off - done)
+        done = off
+        for o, fn in events:
+            if o == off:
+                st = fn(cl, st, start + off)
+    return st
+
+
+def app_model(model_name: str, n: int = 48, rounds: int = 240,
+              seed: int = 29, device=None) -> dict:
+    """One app model's scripted workload of the traffic suite, with no
+    traffic plane: ``Config(n_nodes=n, seed=seed, **extras)``, the full
+    mesh booted, the app script at its offsets, ``rounds`` rounds, then
+    the app check.  Returns the check's facts, ``app_ok``, the wall
+    seconds (boot apart), the cluster and the final state."""
+    model, extras, boot, drive, check = _traffic_build(model_name, n)
+    cl = cluster_mod.Cluster(Config(n_nodes=n, seed=seed, **extras),
+                             model=model, device=device)
+    t0 = time.perf_counter()
+    st = boot(cl)
+    _sync(st)
+    t_boot = time.perf_counter() - t0
+    start = int(st.rnd)
+    st, events = drive(st, start, rounds)
+    t0 = time.perf_counter()
+    st = run_script(cl, st, events, start, rounds)
+    _sync(st)
+    wall = time.perf_counter() - t0
+    ok, facts = check(st)
+    return {"model": model_name, "n": n, "rounds": rounds, "seed": seed,
+            "app_ok": ok, **facts, "boot_s": t_boot, "run_s": wall,
+            "cluster": cl, "state": st}
 
 
 def bench_config(n: int) -> Config:

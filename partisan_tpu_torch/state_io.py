@@ -25,9 +25,10 @@ from partisan_tpu_torch import device as device_mod
 from partisan_tpu_torch import faults, health
 from partisan_tpu_torch.managers import (client_server, fullmesh,
                                          hyparview, scamp, static)
-from partisan_tpu_torch.models import (anti_entropy, causal_chat,
-                                       direct_mail, echo, p2p_chat,
-                                       plumtree, rumor_mongering)
+from partisan_tpu_torch.models import (alsberg_day, anti_entropy,
+                                       causal_chat, commit, direct_mail,
+                                       echo, p2p_chat, paxos, plumtree,
+                                       rumor_mongering)
 from partisan_tpu_torch.ops import exchange
 from partisan_tpu_torch.ops.plane import Planes
 
@@ -40,7 +41,8 @@ _TYPES = {cls.__name__: cls for cls in (
     client_server.ClientServerState, anti_entropy.AntiEntropyState,
     rumor_mongering.RumorState, health.HealthState, delivery.CausalLane,
     delivery.P2PLane, channels.OutboxState, p2p_chat.P2PChatState,
-    causal_chat.ChatState, echo.EchoState)}
+    causal_chat.ChatState, echo.EchoState, paxos.PaxosState,
+    commit.CommitState, alsberg_day.AlsbergDayState)}
 
 # (NamedTuple, field) leaves the reference keeps as uint32 and the port
 # holds in int64.

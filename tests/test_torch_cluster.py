@@ -279,7 +279,12 @@ def test_port_imports_no_jax():
             "partisan_tpu_torch.models.stack, "
             "partisan_tpu_torch.models.p2p_chat, "
             "partisan_tpu_torch.models.causal_chat, "
-            "partisan_tpu_torch.models.echo; "
+            "partisan_tpu_torch.models.echo, "
+            "partisan_tpu_torch.models.paxos, "
+            "partisan_tpu_torch.ops.scatter, "
+            "partisan_tpu_torch.models.commit, "
+            "partisan_tpu_torch.models.alsberg_day, "
+            "partisan_tpu_torch.prop, partisan_tpu_torch.prop_models; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'partisan_tpu' "
             "or m.startswith('partisan_tpu.')]; "
