@@ -16,8 +16,12 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    tails of each dtype, planes that are views at an odd element offset,
    W in {1, 12, 16, 32}, W=13 at the Paxos record's dtypes (flat, and
    at phase 16's [5, 7] planes into an out= slice of its [40, 5, 7, 13]
-   trace buffer as Cluster.record writes it), an out= slice of a [3, ...] buffer and an output that is
-   not 16-byte aligned.  At the main shape: its time by
+   trace buffer as Cluster.record writes it), W=19 at the bench path's
+   dtypes with metrics, latency and provenance on (16 protocol planes,
+   int32 source, int16 hop, int32 birth: the path's [32768, 77] planes
+   flat, and into one slot of a [4, 32768, 77, 19] flight ring), an out=
+   slice of a [3, ...] buffer and an output that is not 16-byte aligned.
+   At the main shape and at W=19: its time by
    CUDA events (ms), its own device time per call from a torch.profiler
    window (device_ms), the host's wall per call of back-to-back calls
    with no synchronize (host_ms), the plain version's time, the time of
@@ -124,8 +128,37 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    model's wall, ms per round, and a K_PROG-round window from its first
    app event under torch.profiler (launches, host reads, device time,
    idle share).  Kernel counts are reset just before phases 14, 15 and
-   17 and read just after each;
-18. the kernels line, the card line, and last the result line
+   17 and read just after each.  Phase 15 profiles one extra execution
+   of its first run only;
+18. the planes, small, on the card and on the CPU, every state leaf
+   identical after every round: the bench configuration at n=512 with
+   metrics, latency and provenance on (fast wire arm); the same with a
+   4-round flight ring (generic arm), whose decoded Trace must equal
+   Cluster.record's last 4 of 6 rounds; config 8 at n=48, both arms, 3
+   waves; the fanout governor's arm at n=64 (4 waves) and the healing
+   arm at n=64, both adaptive;
+19. the bench path at n=32768 with metrics, latency and provenance on
+   (scenarios.bench_broadcast): it must converge on phase 5's round at
+   coverage 1.0, the metrics books must close (causes sum to emitted -
+   delivered, equal to Stats) and the latency counts per channel must
+   equal the metrics ring's delivered per channel; bench.py's metrics
+   totals, latency percentiles and provenance lines; ms per round with
+   the planes on and off (one call), K_PROG-round profiled windows
+   (launches and host reads per round: the planes add no host read),
+   the launches each plane adds alone, the peak memory;
+20. the flight ring at full width: phase 19's booted state with a
+   4-round ring, the broadcast queued, 20 rounds by steps (the
+   interleave must launch once a round) and the same 20 by record; the
+   ring's Trace equals record's last 4 rounds bit for bit, both final
+   states identical; ms per round with the ring against without it, the
+   kernel's device time per launch, the peak memory;
+21. the controllers' A/B (scenarios.control_ab at scale 1.0) on the card:
+   every arm's dict equal to the JAX package's (JAX_CONTROL_AB) and
+   all_win true; each arm's wall, ms per round and, over its first 3
+   rounds after the boot under torch.profiler, launches, host reads and
+   device time per round.  Kernel counts are
+   reset just before phases 18-21 and read just after each;
+22. the kernels line, the card line, and last the result line
    {"ok": true, "device": {...}}.
 """
 
@@ -154,6 +187,58 @@ PAXOS_FB_HORIZON = 40       # tests/test_paxos.py's Filibuster checker
 PAXOS_FB_SENT = (5, 7)      # its record's [n, emitted slots] per round
 N_APP = 48                  # the traffic suite's app-model size
 APP_ROUNDS = 240
+FLIGHT_K = 4                # flight_rounds of phases 18 and 20
+FLIGHT_ROUNDS = 20          # phase 20's rounds after the broadcast
+PROFILED_ROUNDS = 3         # rounds profiled per arm in phase 21
+PLANES = dict(metrics=True, latency=True, provenance=True)
+
+# scenarios.control_ab(scale=1.0) of the JAX package on the CPU (jax
+# 0.9.0), every arm's dict with the state handle stripped: phase 21 holds
+# the port on the card to these values.
+JAX_CONTROL_AB = {
+    "fanout": {
+        "metric": "steady_redundancy_ratio", "n": 128,
+        "static": {"redundancy_ratio": 0.8124,
+                   "steady_redundancy_ratio": 0.8326, "coverage": 1.0},
+        "adaptive": {"redundancy_ratio": 0.7416,
+                     "steady_redundancy_ratio": 0.7282, "coverage": 1.0,
+                     "eager_cap": 2, "fanout_adjustments": 12},
+        "win": True, "coverage_ok": True},
+    "fanout_calm": {
+        "static": {"redundancy_ratio": 0.6595, "coverage": 0.9844},
+        "adaptive": {"redundancy_ratio": 0.6595, "coverage": 0.9844,
+                     "eager_cap": 5, "fanout_adjustments": 1,
+                     "quiet_adjustments": 0},
+        "no_regression": True},
+    "backpressure": {
+        "metric": "p99_delivery_age", "n": 96,
+        "static": {
+            "config": 8, "n": 96, "adaptive": False, "waves": 10,
+            "wave_len": 12, "coverage": 1.0, "outbox_shed": 2,
+            "p99": {"default": 7, "partisan_membership": None,
+                    "rpc": None, "broadcast": 7},
+            "age_max": {"default": 11, "partisan_membership": 0, "rpc": 0,
+                        "broadcast": 9},
+            "delivered": {"default": 8625, "partisan_membership": 0,
+                          "rpc": 0, "broadcast": 24695}},
+        "adaptive": {
+            "config": 8, "n": 96, "adaptive": True, "waves": 10,
+            "wave_len": 12, "coverage": 1.0, "outbox_shed": 324,
+            "p99": {"default": 3, "partisan_membership": None,
+                    "rpc": None, "broadcast": 3},
+            "age_max": {"default": 4, "partisan_membership": 0, "rpc": 0,
+                        "broadcast": 4},
+            "delivered": {"default": 8171, "partisan_membership": 0,
+                          "rpc": 0, "broadcast": 24091},
+            "control": {"press": [0, 0, 0, 1]}},
+        "win": True, "coverage_ok": True},
+    "healing": {
+        "metric": "rounds_to_heal", "n": 128,
+        "static": {"rounds_to_heal": 70},
+        "adaptive": {"rounds_to_heal": 15, "heal_boost": 2},
+        "win": True},
+    "all_win": True,
+}
 
 
 def log(obj) -> None:
@@ -292,14 +377,17 @@ def kernel_check(shape, dtypes, seed: int) -> dict:
     }
 
 
-def interleave_edges(bench_dtypes, paxos_dtypes, seed: int) -> list:
+def interleave_edges(bench_dtypes, paxos_dtypes, plane_dtypes,
+                     seed: int) -> list:
     """The interleave, bit for bit, where its edge paths run: ragged
     tails of each dtype, planes that are views at an odd element offset,
     W in {1, 12, 16, 32}, W=13 at the Paxos record's dtypes (flat, and
     at phase 16's shape into one round's slice of its [40, 5, 7, 13]
-    trace buffer), an out=
-    slice of a [3, ...] buffer (as Cluster.record passes) and an output
-    that is not 16-byte aligned."""
+    trace buffer), W=19 at the bench path's dtypes with every plane on
+    (the path's [n, 77] planes flat, and into one slot of a
+    [4, n, 77, 19] flight ring), an out= slice of a [3, ...] buffer (as
+    Cluster.record passes) and an output that is not 16-byte
+    aligned."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     mixed = [torch.int8, torch.int16, torch.int32]
     out = []
@@ -326,6 +414,16 @@ def interleave_edges(bench_dtypes, paxos_dtypes, seed: int) -> list:
         raise AssertionError("interleave into out=buf[7] wrote elsewhere")
     out.append({"case": f"W=13, Paxos dtypes, out=buf[7] of "
                         f"{list(buf.shape)}", **res})
+    ws = [cuda_random((N_MAIN, 77), dt, gen) for dt in plane_dtypes]
+    out.append({"case": "W=19, bench dtypes with the planes, "
+                        f"[{N_MAIN}, 77]", **interleave_exact(ws)})
+    ring = torch.full((FLIGHT_K, N_MAIN, 77, 19), -7, dtype=torch.int32,
+                      device="cuda")
+    res = interleave_exact(ws, out=ring[2])
+    if not bool((ring[:2] == -7).all() & (ring[3:] == -7).all()):
+        raise AssertionError("interleave into out=ring[2] wrote elsewhere")
+    out.append({"case": f"W=19, out=ring[2] of {list(ring.shape)}", **res})
+    del ring, ws, res
     shape = (1000, 77)
     ws = [cuda_random(shape, dt, gen) for dt in bench_dtypes]
     buf = torch.full((3,) + shape + (16,), -7, dtype=torch.int32,
@@ -396,8 +494,7 @@ def state_leaves(tree):
     return state_io.flatten(state_io.state_to_numpy(tree))
 
 
-def assert_identical(a, b, label: str) -> int:
-    la, lb = state_leaves(a), state_leaves(b)
+def assert_leaves_identical(la, lb, label: str) -> int:
     if len(la) != len(lb):
         raise AssertionError(f"{label}: {len(la)} vs {len(lb)} leaves")
     for (pa, xa), (_, xb) in zip(la, lb):
@@ -406,6 +503,10 @@ def assert_identical(a, b, label: str) -> int:
             raise AssertionError(f"{label}: leaf {pa} differs between the "
                                  "card and the CPU")
     return len(la)
+
+
+def assert_identical(a, b, label: str) -> int:
+    return assert_leaves_identical(state_leaves(a), state_leaves(b), label)
 
 
 def drive_small(device: str):
@@ -1075,8 +1176,9 @@ def harness_runs(device: str) -> dict:
                   "render": res.render()}
         out[label] = {"result": fields, "wall_s": wall,
                       "executions": execs, "executions_per_s": execs / wall}
-        if device == "cuda":
-            # one more execution of the run's script, profiled as a round
+        if device == "cuda" and len(out) == 1:
+            # one more execution of the first run's script, profiled as a
+            # round (the other runs' repeat it: PERF.md §5)
             out[label]["per_execution"] = round_profile(
                 lambda: h._execute(res.commands), 1)
     return out
@@ -1238,6 +1340,376 @@ def node_keys_profile(cl, st) -> dict:
                          1)
 
 
+class RoundLog:
+    """While active, ``Cluster.steps`` runs its rounds one at a time and
+    keeps every round's state leaves (numpy), so two devices' runs of a
+    driver can be compared after every round."""
+
+    def __enter__(self):
+        from partisan_tpu_torch import cluster as cluster_mod
+
+        self.states = []
+        self._orig = orig = cluster_mod.Cluster.steps
+        states = self.states
+
+        def steps(cl, st, k):
+            for _ in range(k):
+                st = orig(cl, st, 1)
+                states.append(state_leaves(st))
+            return st
+
+        cluster_mod.Cluster.steps = steps
+        return self
+
+    def __exit__(self, *exc):
+        from partisan_tpu_torch import cluster as cluster_mod
+
+        cluster_mod.Cluster.steps = self._orig
+        return False
+
+
+def assert_rounds_identical(a: list, b: list, label: str) -> int:
+    """Two RoundLogs' states, round by round, leaf for leaf."""
+    if len(a) != len(b):
+        raise AssertionError(f"{label}: {len(a)} vs {len(b)} rounds")
+    for r, (la, lb) in enumerate(zip(a, b)):
+        assert_leaves_identical(la, lb, f"{label} round {r}")
+    return len(a)
+
+
+def planes_setups(device: str) -> dict:
+    """Phase 18's runs on ``device``, each under a RoundLog: the bench
+    path at n=512 with metrics, latency and provenance on (fast arm), the
+    same with a 4-round flight ring (generic arm) whose decoded Trace
+    must equal ``Cluster.record``'s last 4 of 6 rounds from the
+    converged state, config 8 at n=48 (both arms, 3 waves), the fanout
+    arm at n=64 (4 waves) and the healing arm at n=64."""
+    from partisan_tpu_torch import latency, provenance, trace
+    from partisan_tpu_torch import scenarios as sc
+
+    out = {}
+    with RoundLog() as rl:
+        run = sc.bench_broadcast(N_PARITY, device=device,
+                                 widths=[N_PARITY // 2, N_PARITY], **PLANES)
+    out["bench_planes"] = {"rounds": rl.states,
+                           "converged_round": run["converged_round"]}
+    with RoundLog() as rl:
+        run = sc.bench_broadcast(N_PARITY, device=device,
+                                 widths=[N_PARITY // 2, N_PARITY],
+                                 flight_rounds=FLIGHT_K, **PLANES)
+    # record and steps from the broadcast round, so the ring holds live
+    # traffic
+    cl, boot, start = run["cluster"], run["boot_state"], run["start_round"]
+    st0 = boot._replace(
+        provenance=provenance.mark_origin(boot.provenance, 0, 0, rnd=start),
+        model=run["model"].broadcast(boot.model, 0, 0, start))
+    st_r, tr = cl.record(st0, 6)
+    st_s = cl.steps(st0, 6)
+    ring = latency.flight_trace(st_s.flight)
+    cap = trace.from_capture(tr).tail(FLIGHT_K)
+    if not (np.array_equal(ring.sent, cap.sent)
+            and np.array_equal(ring.dropped, cap.dropped)
+            and np.array_equal(ring.rounds, cap.rounds)) \
+            or not any(True for _ in ring.events()):
+        raise AssertionError(f"{device}: the flight ring != record's last "
+                             f"{FLIGHT_K} rounds, or it holds no send")
+    assert_identical(st_r, st_s, f"{device}: record vs steps with a ring")
+    out["flight"] = {"rounds": rl.states + [state_leaves(st_s)],
+                     "converged_round": run["converged_round"],
+                     "ring_sends": sum(1 for _ in ring.events()),
+                     "ring": ring.sent}
+    for adaptive in (False, True):
+        with RoundLog() as rl:
+            d = sc.config8_overload(n=48, waves=3, adaptive=adaptive,
+                                    device=device)
+        out[f"config8_{'adaptive' if adaptive else 'static'}"] = {
+            "rounds": rl.states, "dict": d}
+    with RoundLog() as rl:
+        d = sc._strip_state(sc.fanout_ab_arm(True, n=64, waves=4,
+                                             device=device))
+    out["fanout_arm"] = {"rounds": rl.states, "dict": d}
+    with RoundLog() as rl:
+        d = sc._strip_state(sc.healing_ab_arm(True, n=64, device=device))
+    out["healing_arm"] = {"rounds": rl.states, "dict": d}
+    return out
+
+
+def planes_parity() -> dict:
+    """Phase 18: every setup's state after every round, card == CPU, and
+    the returned facts equal."""
+    g, c = planes_setups("cuda"), planes_setups("cpu")
+    out = {}
+    for label in g:
+        n = assert_rounds_identical(g[label]["rounds"], c[label]["rounds"],
+                                    label)
+        facts = {k: v for k, v in g[label].items()
+                 if k not in ("rounds", "ring")}
+        if facts != {k: v for k, v in c[label].items()
+                     if k not in ("rounds", "ring")}:
+            raise AssertionError(f"{label}: card {facts} != CPU")
+        out[label] = {"rounds_compared": n,
+                      "leaves": len(g[label]["rounds"][-1]), **facts}
+    if not np.array_equal(g["flight"]["ring"], c["flight"]["ring"]):
+        raise AssertionError("the flight ring differs card vs CPU")
+    return out
+
+
+def strip_planes(st, keep: tuple):
+    """The bench state with only the planes in ``keep`` (metrics,
+    latency, provenance): the other planes' leaves dropped and the inbox
+    cut to the kept trailing words (16 protocol words, the provenance
+    pair, the birth word)."""
+    from partisan_tpu_torch.ops import exchange
+    from partisan_tpu_torch.ops.plane import Planes
+
+    d = list(st.inbox.data)
+    words = d[:16] + (d[16:18] if "provenance" in keep else []) \
+        + ([d[18]] if "latency" in keep else [])
+    return st._replace(
+        inbox=exchange.Inbox(data=Planes(words), count=st.inbox.count,
+                             drops=st.inbox.drops),
+        metrics=st.metrics if "metrics" in keep else (),
+        latency=st.latency if "latency" in keep else (),
+        provenance=st.provenance if "provenance" in keep else ())
+
+
+def bench_planes_full(card: str, cl_off, st_off, conv_off: int) -> dict:
+    """Phase 19: the bench path at n=32768 with metrics, latency and
+    provenance on.  It must converge on phase 5's round at coverage 1.0,
+    the metrics books must close (causes sum to emitted - delivered and
+    equal Stats) and the latency counts per channel equal metrics'
+    delivered per channel.  Then ms per round planes on and off (the
+    throughput instrument, one call), K_PROG-round profiled windows
+    (launches, host reads: the planes add none) with every plane and
+    with each alone, and the peak memory."""
+    from partisan_tpu_torch import kernels, latency, metrics
+    from partisan_tpu_torch import scenarios as sc
+    from partisan_tpu_torch.cluster import Cluster
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    run = sc.bench_broadcast(N_MAIN, **PLANES)
+    wall = time.perf_counter() - t0
+    counts = dict(kernels.launches)
+    cl, st = run["cluster"], run["state"]
+    if run["converged_round"] != conv_off:
+        raise AssertionError(f"planes on converge at round "
+                             f"{run['converged_round']}, phase 5 at "
+                             f"{conv_off}")
+    coverage = float(run["model"].coverage(st.model, st.faults.alive, 0))
+    if coverage != 1.0:
+        raise AssertionError(f"planes on: coverage {coverage}")
+    msnap = metrics.snapshot(st.metrics)
+    tot = metrics.totals(msnap)
+    if tot["rounds"] != int(st.rnd) or tot["emitted"] \
+            != int(st.stats.emitted) or tot["delivered"] \
+            != int(st.stats.delivered) or tot["dropped"] \
+            != int(st.stats.dropped) or tot["dropped"] \
+            != tot["emitted"] - tot["delivered"]:
+        raise AssertionError(f"the metrics books do not close: {tot}")
+    lsnap = latency.snapshot(st.latency)
+    if not (lsnap["deliver"].sum(axis=1)
+            == msnap["delivered"].sum(axis=0)).all():
+        raise AssertionError("latency counts != metrics delivered per "
+                             "channel")
+    lines = sc.bench_planes_report(cl.cfg, st)
+    rps_on = sc._throughput(cl, st)
+    rps_off = sc._throughput(cl_off, st_off)
+    prof_on = round_profile(lambda: cl.steps(st, sc.K_PROG), sc.K_PROG)
+    prof_off = round_profile(lambda: cl_off.steps(st_off, sc.K_PROG),
+                             sc.K_PROG)
+    if prof_on["host_reads_per_round"] != prof_off["host_reads_per_round"]:
+        raise AssertionError(f"the planes add host reads: "
+                             f"{prof_on['host_reads_per_round']} vs "
+                             f"{prof_off['host_reads_per_round']}")
+    alone = {}
+    for plane in ("metrics", "latency", "provenance"):
+        pcl = Cluster(sc.bench_config(N_MAIN).replace(**{plane: True}),
+                      model=run["model"])
+        pst = strip_planes(st, (plane,))
+        prof = round_profile(lambda: pcl.steps(pst, sc.K_PROG), sc.K_PROG)
+        alone[plane] = {
+            "launches_added_per_round": prof["launches_per_round"]
+            - prof_off["launches_per_round"],
+            "ms_per_round": prof["wall_ms_per_round"],
+            "host_reads_per_round": prof["host_reads_per_round"]}
+    return {"card": card, "n": N_MAIN, "wall_s": wall,
+            "bootstrap_s": run["bootstrap_s"],
+            "convergence_s": run["convergence_s"],
+            "converged_round": run["converged_round"],
+            "start_round": run["start_round"], "coverage": coverage,
+            "bench_lines": lines,
+            "ms_per_round_on": 1e3 / rps_on, "ms_per_round_off": 1e3 / rps_off,
+            "window_on": prof_on, "window_off": prof_off, "alone": alone,
+            "launches": counts,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "_run": run}
+
+
+def flight_full(card: str, run: dict) -> dict:
+    """Phase 20: phase 19's booted state with a 4-round flight ring, the
+    broadcast marked and queued, then FLIGHT_ROUNDS rounds by ``steps``
+    (the interleave must launch once a round) and the same rounds by
+    ``record``; the ring's Trace equals record's last 4 rounds bit for
+    bit and both final states are identical.  Then ms per round with the
+    ring against the same state without it (one call each, K_PROG
+    rounds), the kernel's device time per launch, and the peak memory."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from partisan_tpu_torch import kernels, latency, provenance, trace
+    from partisan_tpu_torch import scenarios as sc
+    from partisan_tpu_torch.cluster import Cluster
+
+    torch.cuda.reset_peak_memory_stats()
+    model, boot, start = run["model"], run["boot_state"], run["start_round"]
+    cfg = run["cluster"].cfg.replace(flight_rounds=FLIGHT_K)
+    fcl = Cluster(cfg, model=model)
+    shape = fcl.flight_shape(boot)
+    if shape != (N_MAIN, 77, 19):
+        raise AssertionError(f"flight shape {shape}")
+    st0 = boot._replace(
+        flight=latency.flight_init(cfg, shape, device=boot.rnd.device),
+        provenance=provenance.mark_origin(boot.provenance, 0, 0, rnd=start),
+        model=model.broadcast(boot.model, 0, 0, start))
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    st_s = fcl.steps(st0, FLIGHT_ROUNDS)
+    sc._sync(st_s)
+    t_steps = time.perf_counter() - t0
+    steps_launches = kernels.launches["interleave"]
+    if steps_launches != FLIGHT_ROUNDS:
+        raise AssertionError(f"{steps_launches} interleave launches in "
+                             f"{FLIGHT_ROUNDS} flight rounds")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    st_r, tr = fcl.record(st0, FLIGHT_ROUNDS)
+    sc._sync(st_r)
+    t_rec = time.perf_counter() - t0
+    rec_launches = kernels.launches["interleave"]
+    ring = latency.flight_trace(st_s.flight)
+    cap = trace.from_capture(tr).tail(FLIGHT_K)
+    if not (np.array_equal(ring.sent, cap.sent)
+            and np.array_equal(ring.dropped, cap.dropped)
+            and np.array_equal(ring.rounds, cap.rounds)):
+        raise AssertionError("the flight ring != record's last rounds")
+    n_leaves = assert_identical(st_s, st_r, "steps vs record with a ring")
+    del tr, st_r
+    plain = st_s._replace(flight=())
+    kernels.reset_launches()
+    prof_ring = round_profile(lambda: fcl.steps(st_s, sc.K_PROG), sc.K_PROG)
+    prof_plain = round_profile(
+        lambda: run["cluster"].steps(plain, sc.K_PROG), sc.K_PROG)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fcl.steps(st_s, sc.K_PROG)
+        torch.cuda.synchronize()
+    kev = [e for e in prof.key_averages() if "interleave" in e.key
+           and _self_device_us(e) > 0]
+    dev_us = sum(_self_device_us(e) for e in kev)
+    n_k = sum(e.count for e in kev)
+    win_launches = kernels.launches["interleave"]
+    return {"card": card, "n": N_MAIN, "flight_rounds": FLIGHT_K,
+            "ring_shape": list(st_s.flight.sent.shape),
+            "ring_gib": st_s.flight.sent.numel() * 4 / 2 ** 30,
+            "rounds": FLIGHT_ROUNDS, "steps_s": t_steps, "record_s": t_rec,
+            "interleave_launches": {"steps": steps_launches,
+                                    "record": rec_launches,
+                                    "profiled_windows": win_launches},
+            "leaves": n_leaves, "events_in_ring": sum(1 for _ in
+                                                     ring.events()),
+            "window_ring": prof_ring, "window_no_ring": prof_plain,
+            "kernel_device_ms_per_launch": dev_us / 1e3 / max(n_k, 1),
+            "kernel_launches_profiled": n_k,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "launches": {"interleave": steps_launches + rec_launches
+                         + win_launches, "minimal": 0}}
+
+
+def control_ab_full(card: str) -> dict:
+    """Phase 21: ``scenarios.control_ab(scale=1.0)`` on the card; every
+    arm's dict must equal the JAX package's (``JAX_CONTROL_AB``) and
+    ``all_win`` must hold.  Each arm's wall and rounds, and the first
+    PROFILED_ROUNDS rounds of its second ``steps`` call (the first after
+    its boot) under torch.profiler: launches, host reads and device time
+    per round.  The profiled rounds and their profiler's time are left
+    out of the arm's ms per round."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from partisan_tpu_torch import cluster as cluster_mod
+    from partisan_tpu_torch import scenarios as sc
+
+    arms: dict = {}
+    cur = {"arm": None}
+    orig_steps = cluster_mod.Cluster.steps
+
+    def steps(cl, st, k):
+        a = arms[cur["arm"]]
+        a["rounds"] += k
+        a["steps_calls"] += 1
+        if a["steps_calls"] != 2:
+            return orig_steps(cl, st, k)
+        r = min(k, PROFILED_ROUNDS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            st = orig_steps(cl, st, r)
+            torch.cuda.synchronize()
+        ev = prof.key_averages()
+        a["profiled_rounds"] = r
+        a["launches_per_round"] = sum(
+            e.count for e in ev if _self_device_us(e) > 0 and str(
+                getattr(e, "device_type", "")).endswith("CUDA")) / r
+        a["host_reads_per_round"] = sum(
+            e.count for e in ev
+            if e.key == "aten::_local_scalar_dense") / r
+        a["device_ms_per_round"] = sum(
+            _self_device_us(e) for e in ev if str(getattr(
+                e, "device_type", "")).endswith("CUDA")) / 1e3 / r
+        a["_profiled_s"] = time.perf_counter() - t0
+        return orig_steps(cl, st, k - r) if k > r else st
+
+    def timed_arm(name, fn):
+        def run(*args, **kw):
+            adaptive = args[0] if args else kw.get("adaptive", True)
+            label = f"{name}_{'adaptive' if adaptive else 'static'}"
+            cur["arm"] = label
+            arms[label] = {"rounds": 0, "steps_calls": 0}
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            a = arms[label]
+            a["wall_s"] = time.perf_counter() - t0
+            a["ms_per_round"] = (a["wall_s"] - a.pop("_profiled_s")) \
+                * 1e3 / (a["rounds"] - a["profiled_rounds"])
+            return out
+        return run
+
+    names = ("fanout_ab_arm", "fanout_calm_arm", "config8_overload",
+             "healing_ab_arm")
+    saved = {k: getattr(sc, k) for k in names}
+    cluster_mod.Cluster.steps = steps
+    for k in names:
+        setattr(sc, k, timed_arm(k, saved[k]))
+    try:
+        t0 = time.perf_counter()
+        res = sc.control_ab(scale=1.0)
+        wall = time.perf_counter() - t0
+    finally:
+        cluster_mod.Cluster.steps = orig_steps
+        for k in names:
+            setattr(sc, k, saved[k])
+    for key, want in JAX_CONTROL_AB.items():
+        if res[key] != want:
+            raise AssertionError(f"control_ab {key}: card {res[key]} != "
+                                 f"JAX {want}")
+    if res["all_win"] is not True:
+        raise AssertionError("control_ab: all_win is not true")
+    return {"card": card, "wall_s": wall, "all_win": res["all_win"],
+            "arms": arms, "result": res}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1279,8 +1751,13 @@ def main() -> int:
     ragged = kernel_check((4099, 13), bench_dtypes[:12], seed=2)
     log({"phase": "kernel_check", "kernel": "interleave", "card": card,
          **ragged})
+    plane_dtypes = list(sc.bench_config(8).replace(**PLANES).wire_dtypes)
+    planes_check = kernel_check((N_MAIN, 77), plane_dtypes, seed=7)
+    log({"phase": "kernel_check", "kernel": "interleave", "card": card,
+         **planes_check})
     paxos_dtypes = list(Config(n_nodes=5, msg_words=13).wire_dtypes)
-    edges = interleave_edges(bench_dtypes, paxos_dtypes, seed=6)
+    edges = interleave_edges(bench_dtypes, paxos_dtypes, plane_dtypes,
+                             seed=6)
     log({"phase": "kernel_edges", "kernel": "interleave", "cases": edges})
 
     # 4. GPU vs CPU parity at n=512
@@ -1332,7 +1809,8 @@ def main() -> int:
                    "dropped": int(st.stats.dropped)},
          "launches": counts, "peak_mem_gib":
          torch.cuda.max_memory_allocated() / 2 ** 30})
-    del tr, st2, st
+    del tr, st2
+    cl5, st5 = cl, st
     boot_main = run["boot_state"]
     del run
 
@@ -1463,12 +1941,43 @@ def main() -> int:
     am_counts = dict(kernels.launches)
     log({"phase": "app_models", "n": N_APP, "rounds": APP_ROUNDS, **am,
          "launches": am_counts, "seconds": time.perf_counter() - t0})
+
+    # 18. the planes, small: card against CPU after every round
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    pp = planes_parity()
+    pp_counts = dict(kernels.launches)
+    log({"phase": "planes_parity", "card": card, **pp,
+         "launches": pp_counts, "seconds": time.perf_counter() - t0})
+
+    # 19. the bench path with the planes at n=32768, counts reset inside
+    t0 = time.perf_counter()
+    bp = bench_planes_full(card, cl5, st5, conv)
+    run19 = bp.pop("_run")
+    log({"phase": "bench_planes", **bp,
+         "seconds": time.perf_counter() - t0})
+    del cl5, st5
+
+    # 20. the flight ring at full width, counts reset inside
+    t0 = time.perf_counter()
+    fl = flight_full(card, run19)
+    log({"phase": "flight", **fl, "seconds": time.perf_counter() - t0})
+    del run19
+
+    # 21. the controllers' A/B at the reference's sizes
+    kernels.reset_launches()
+    ca = control_ab_full(card)
+    ca_counts = dict(kernels.launches)
+    log({"phase": "control_ab", **ca, "launches": ca_counts})
+
     new_paths = {"causal_parity": lp_counts, "config5": c5_counts,
                  "config6": c6_counts, "app_parity": ap_counts,
                  "harness": hp_counts, "filibuster_paxos": fp["launches"],
-                 "app_models": am_counts}
+                 "app_models": am_counts, "planes_parity": pp_counts,
+                 "bench_planes": bp["launches"], "flight": fl["launches"],
+                 "control_ab": ca_counts}
 
-    # 18. kernels line, card line, result line
+    # 22. kernels line, card line, result line
     timing_keys = ("ms", "device_ms", "host_ms", "plain_ms", "library_ms",
                    "bound_ms")
     log({"kernels": [{
@@ -1486,9 +1995,12 @@ def main() -> int:
                                 for k, c in new_paths.items()}},
         "matches_plain": main_check["max_abs_err"] == 0
         and ragged["max_abs_err"] == 0
+        and planes_check["max_abs_err"] == 0
         and all(r["max_abs_err"] == 0 for r in edges),
-        "max_abs_err": max([main_check["max_abs_err"], ragged["max_abs_err"]]
+        "max_abs_err": max([main_check["max_abs_err"], ragged["max_abs_err"],
+                            planes_check["max_abs_err"]]
                            + [r["max_abs_err"] for r in edges]),
+        "w19": {k: planes_check[k] for k in timing_keys},
         **{k: main_check[k] for k in timing_keys}, "bound_by": "bytes",
     }, {
         "name": "minimal", "route": "cuda",

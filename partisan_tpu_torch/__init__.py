@@ -10,4 +10,5 @@ Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``, as the tests do); they raise when no GPU is present.
 """
 
-from partisan_tpu_torch.config import Config, HyParViewConfig, PlumtreeConfig  # noqa: F401
+from partisan_tpu_torch.config import (  # noqa: F401
+    Config, ControlConfig, HyParViewConfig, PlumtreeConfig)

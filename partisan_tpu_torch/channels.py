@@ -22,6 +22,7 @@ from typing import NamedTuple
 
 import torch
 
+from partisan_tpu_torch import latency as latency_mod
 from partisan_tpu_torch import types as T
 from partisan_tpu_torch.ops import msg as msg_ops
 from partisan_tpu_torch.ops import plane as plane_ops
@@ -43,12 +44,17 @@ def init(cfg, comm) -> OutboxState:
         shed=torch.zeros((), dtype=torch.int32, device=comm.device))
 
 
-def throttle(cfg, comm, ob: OutboxState, emitted: plane_ops.Planes):
+def throttle(cfg, comm, ob: OutboxState, emitted: plane_ops.Planes, *,
+             birth_rnd=None, shed_age=None):
     """Apply per-(edge, channel, lane) capacity to this round's sends.
     Returns (outbox', emitted'): emitted' holds the outbox's deferred
     sends first, then the fresh ones, with every send beyond its lane's
     budget cleared; those defer into the outbox, or shed when it is
-    full."""
+    full.  With ``birth_rnd`` (the latency plane on) a third value is
+    returned: the age histogram of the records shed at the outbox cut.
+    ``shed_age`` (int32[C], needs ``birth_rnd``) is the backpressure
+    controller's per-channel threshold: a record at least that old is
+    shed before the capacity ranking."""
     par_py = [c.parallelism for c in cfg.channels]
     OB = cfg.outbox_cap
     both = plane_ops.concat([ob.data, emitted], dim=1)        # [n, M]
@@ -58,6 +64,14 @@ def throttle(cfg, comm, ob: OutboxState, emitted: plane_ops.Planes):
     valid = kind != 0
     par = torch.tensor(par_py, dtype=torch.int32, device=dev)
     ch = both[T.W_CHANNEL].to(torch.int32).clamp(0, cfg.n_channels - 1)
+    stale = None
+    if shed_age is not None:
+        if birth_rnd is None:
+            raise ValueError("shed_age needs birth_rnd (the latency "
+                             "plane's ages)")
+        stale = valid & (latency_mod.ages(both, birth_rnd)
+                         >= shed_age[ch.to(torch.int64)])
+        valid = valid & ~stale
     lane = (both[T.W_LANE] & 0x7FFFFFFF) % par[ch.to(torch.int64)]
     key = (both[T.W_DST].clamp(min=0) * cfg.n_channels + ch) \
         * max(par_py) + lane
@@ -80,9 +94,15 @@ def throttle(cfg, comm, ob: OutboxState, emitted: plane_ops.Planes):
     # Deferred sends pack into the outbox in slot order (FIFO).
     keep = defer & (torch.cumsum(defer, dim=1) - 1 < OB)
     pos = torch.sort(torch.where(keep, m_idx, M), dim=1)[0][:, :OB]
-    shed = (defer & ~keep).sum().to(torch.int32)
-    return OutboxState(data=plane_ops.take_rows(both, pos, fill=True),
-                       shed=ob.shed + shed), out
+    cut = defer & ~keep
+    if stale is not None:
+        # backpressure sheds join the outbox cut (CAUSE_OUTBOX)
+        cut = cut | stale
+    ob_out = OutboxState(data=plane_ops.take_rows(both, pos, fill=True),
+                         shed=ob.shed + cut.sum().to(torch.int32))
+    if birth_rnd is None:
+        return ob_out, out
+    return ob_out, out, latency_mod.age_hist(both, cut, birth_rnd)
 
 
 def shed_delta(before: OutboxState, after: OutboxState) -> torch.Tensor:

@@ -6,8 +6,9 @@ same configuration here.  The port runs the full-mesh, HyParView,
 SCAMP v1/v2, static and client-server managers on the plane-major
 wire, with groups or dense partitions, the send-path delay keys, every
 lane of the delivery layer (acked, causal broadcast, point-to-point
-causal), the channel-capacity stage and the health plane; every other
-observability plane is off, and every option the port does not carry
+causal), the channel-capacity stage, the metrics, latency (with its
+flight ring), provenance and health planes and the three in-round
+controllers (``ControlConfig``).  Every option the port does not carry
 raises ``NotImplementedError`` at construction instead of being
 silently ignored.  ``superstep`` is a loop fold with no effect on
 results, so it is accepted.
@@ -88,19 +89,53 @@ class ScampConfig:
     in_max: int = 64              # capacity of in-view arrays (v2)
 
 
+@dataclasses.dataclass(frozen=True)
+class ControlConfig:
+    """In-round feedback controllers (``control.py``), each off by
+    default and each reading one plane:
+
+    - ``fanout``: the Plumtree eager-fanout governor (needs
+      ``provenance``) steps a per-round eager-link budget between
+      ``fanout_min`` and the overlay width off the redundancy ring;
+    - ``backpressure``: per-channel stale-shed thresholds in the
+      channel-capacity outbox (needs ``latency`` and
+      ``channel_capacity``), driven by each channel's delivered-age
+      high-water mark;
+    - ``healing``: HyParView's shuffle/promotion cadences and isolation
+      window divided by ``2**heal_boost`` while the health digest shows
+      a degraded overlay (needs ``health``).
+    """
+
+    fanout: bool = False
+    backpressure: bool = False
+    healing: bool = False
+    ring: int = 64               # decision-ring rounds kept per controller
+    fanout_min: int = 2          # eager-link budget floor
+    fanout_every: int = 8        # evaluation window in rounds
+    fanout_hi_pct: int = 40      # demote: window dup*100 >= hi*gossip
+    fanout_lo_pct: int = 10      # promote: window dup*100 <= lo*gossip
+    fanout_gossip_min: int = 8   # quieter windows hold the budget
+    graft_hi_pct: int = 25       # promote: grafts*100 >= this*gossip
+    age_hi: int = 4              # delivered-age HWM raising the pressure
+    age_lo: int = 1              # ... at or below this it decays
+    press_max: int = 4           # pressure ceiling
+    heal_boost: int = 2          # cadence right-shift while degraded
+    heal_hold: int = 2           # healthy snapshots before relaxing
+
+    @property
+    def any(self) -> bool:
+        return self.fanout or self.backpressure or self.healing
+
+
 MANAGERS = ("fullmesh", "hyparview", "scamp_v1", "scamp_v2",
             "client_server", "static")
 
 # Options whose planes or paths the port does not carry, with the value
 # that keeps them off.  Setting any other value raises.
-_OFF = {
-    "metrics": False, "latency": False, "flight_rounds": 0,
-    "provenance": False, "elastic": False, "salt_operand": False,
-    "plane_major": True,
-}
-# Parameter blocks of unported subsystems (distance, control, traffic,
-# ingress, watchdog): only their absence is accepted.
-_ABSENT = ("distance", "control", "traffic", "ingress", "watchdog")
+_OFF = {"elastic": False, "salt_operand": False, "plane_major": True}
+# Parameter blocks of unported subsystems (distance, traffic, ingress,
+# watchdog): only their absence is accepted.
+_ABSENT = ("distance", "traffic", "ingress", "watchdog")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,7 +172,7 @@ class Config:
     scamp: ScampConfig = ScampConfig()
     plumtree: PlumtreeConfig = PlumtreeConfig()
     distance: Any = None
-    control: Any = None
+    control: ControlConfig = ControlConfig()
     traffic: Any = None
     ingress: Any = None
     watchdog: Any = None
@@ -189,6 +224,15 @@ class Config:
             raise ValueError(
                 f"partition_mode {self.partition_mode!r} not in "
                 f"('auto', 'dense', 'groups')")
+        if self.metrics_ring < 1:
+            raise ValueError(
+                f"metrics_ring must be >= 1, got {self.metrics_ring}")
+        if self.flight_rounds < 0:
+            raise ValueError(
+                f"flight_rounds must be >= 0, got {self.flight_rounds}")
+        if self.provenance_ring < 1:
+            raise ValueError(
+                f"provenance_ring must be >= 1, got {self.provenance_ring}")
         if self.health < 0:
             raise ValueError(
                 f"health must be >= 0 (a snapshot cadence in rounds; "
@@ -196,6 +240,44 @@ class Config:
         if self.health_ring < 1:
             raise ValueError(
                 f"health_ring must be >= 1, got {self.health_ring}")
+        # each controller reads one plane: without it the loop would
+        # silently read nothing
+        if self.control.fanout and not self.provenance:
+            raise ValueError(
+                "control.fanout reads the provenance plane's redundancy "
+                "ring — set Config(provenance=True)")
+        if self.control.backpressure and not self.latency:
+            raise ValueError(
+                "control.backpressure reads delivery ages off the "
+                "latency plane's birth word — set Config(latency=True)")
+        if self.control.backpressure and not self.channel_capacity:
+            raise ValueError(
+                "control.backpressure drives shed thresholds in the "
+                "channel-capacity outbox — set "
+                "Config(channel_capacity=True)")
+        if self.control.healing and self.health <= 0:
+            raise ValueError(
+                "control.healing keys repair cadences off the health "
+                "digest — set Config(health=K)")
+        if self.control.any:
+            c = self.control
+            if c.ring < 1:
+                raise ValueError(f"control.ring must be >= 1, got {c.ring}")
+            if c.fanout_min < 1:
+                raise ValueError("control.fanout_min must be >= 1")
+            if c.press_max < 1:
+                raise ValueError("control.press_max must be >= 1")
+            if c.heal_boost < 0:
+                raise ValueError("control.heal_boost must be >= 0")
+            if not 0 <= c.fanout_lo_pct < c.fanout_hi_pct:
+                raise ValueError(
+                    "control fanout bands need "
+                    "0 <= fanout_lo_pct < fanout_hi_pct")
+            if c.fanout_every < 1:
+                raise ValueError("control.fanout_every must be >= 1")
+            if c.age_lo >= c.age_hi:
+                raise ValueError(
+                    "control backpressure bands need age_lo < age_hi")
         for key, off in _OFF.items():
             if getattr(self, key) != off:
                 raise NotImplementedError(
@@ -228,15 +310,25 @@ class Config:
 
     @property
     def wire_words(self) -> int:
-        """Words per queued wire record: ``msg_words`` (the provenance
-        and latency planes' trailing words are not ported)."""
-        return self.msg_words
+        """Words per queued wire record: ``msg_words``, plus the
+        provenance pair (emitter gid, sender hop) when ``provenance`` is
+        on, plus the latency plane's birth round, always last, when
+        ``latency`` is on.  Managers and models build ``msg_words``-wide
+        records; the round appends the trailing words."""
+        w = self.msg_words
+        if self.provenance:
+            w += 2
+        if self.latency:
+            w += 1
+        return w
 
     @property
     def wire_dtypes(self) -> tuple:
-        """Storage dtype per wire word (the bytes-first packing map; no
-        trailing plane words — provenance and latency are not ported)."""
-        return tuple(T.wire_dtype(i) for i in range(self.msg_words))
+        """Storage dtype per wire word (the bytes-first packing map,
+        trailing words included: the hop word is int16)."""
+        return tuple(T.wire_dtype(i, msg_words=self.msg_words,
+                                  provenance=self.provenance)
+                     for i in range(self.wire_words))
 
     @property
     def wire_layout(self) -> tuple:

@@ -46,6 +46,8 @@ from typing import Any, NamedTuple
 import torch
 
 from partisan_tpu_torch import faults as faults_mod
+from partisan_tpu_torch import latency as latency_mod
+from partisan_tpu_torch import provenance as provenance_mod
 from partisan_tpu_torch import types as T
 from partisan_tpu_torch.ops import exchange, rng, vclock, views
 from partisan_tpu_torch.ops import msg as msg_ops
@@ -191,6 +193,13 @@ def _records(like: Planes, on: torch.Tensor, words: dict) -> Planes:
         else torch.zeros_like(w) for i, w in enumerate(like))
 
 
+def _born_now(cfg, msgs: Planes, rnd) -> Planes:
+    """Control records built mid-round from zeroed wire-width records
+    carry their builder as provenance source and this round as birth."""
+    msgs = provenance_mod.stamp_fresh(cfg, msgs)
+    return latency_mod.stamp_fresh(cfg, msgs, rnd)
+
+
 def _epoch(seed, rnd, tag, gids, ids) -> torch.Tensor:
     """A fresh nonzero 22-bit stream epoch per (node, destination)."""
     h = rng.rank32(seed, rnd, tag, gids[:, None], ids.clamp(min=0))
@@ -226,9 +235,9 @@ def outbound(cfg, comm, st: DeliveryState, emitted: Planes, ctx):
         # 1. Ack everything that arrived flagged; duplicates re-ack.
         need = (kind_in != 0) & _flag(inb[T.W_FLAGS], T.F_ACK_REQUIRED) \
             & alive[:, None]
-        extra.append(_records(inb, need, {
+        extra.append(_born_now(cfg, _records(inb, need, {
             T.W_KIND: int(T.MsgKind.ACK), T.W_SRC: gids[:, None],
-            T.W_DST: inb[T.W_SRC], T.W_CLOCK: inb[T.W_CLOCK]}))
+            T.W_DST: inb[T.W_SRC], T.W_CLOCK: inb[T.W_CLOCK]}), ctx.rnd))
 
         # 2. Consume arriving ACKs: clear the store slots they match
         #    (clock, and the acker being the stored destination).
@@ -472,6 +481,7 @@ def _p2p_send(cfg, ctx, lane: P2PLane, lid: int, pi: int, emitted: Planes,
         T.W_KIND: int(T.MsgKind.P2P_ACK), T.W_SRC: gids[:, None],
         T.W_DST: rr, T.W_CLOCK: -lane.reset_seq.clamp(min=1),
         T.W_LANE: lid})
+    rst_msgs = _born_now(cfg, rst_msgs, ctx.rnd)
 
     # 6b. Compact and admit this round's fresh sends against the free
     # store slots (dropped visibly when full).
@@ -542,6 +552,7 @@ def _p2p_send(cfg, ctx, lane: P2PLane, lid: int, pi: int, emitted: Planes,
         T.W_KIND: int(T.MsgKind.P2P_ACK), T.W_SRC: gids[:, None],
         T.W_DST: lane.src_ids, T.W_CLOCK: lane.src_seq,
         T.W_LANE: lid | (lane.src_ep << 8)})
+    ack_msgs = _born_now(cfg, ack_msgs, ctx.rnd)
     src_acked = torch.where(ack_now, lane.src_seq, lane.src_acked)
 
     lane = lane._replace(

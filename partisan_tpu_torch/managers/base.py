@@ -19,5 +19,5 @@ class RoundCtx(NamedTuple):
     inbox: Inbox         # last round's deliveries
     faults: Any          # faults.FaultState (not prefix-masked)
     n_active: Any = ()   # int32 scalar active prefix width, or ()
-    control: Any = ()    # controllers are not ported: always ()
+    control: Any = ()    # control.ControlState at round start, or ()
     seed: int = 0        # the round's effective seed (cfg.seed)

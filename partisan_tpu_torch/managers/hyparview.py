@@ -74,6 +74,15 @@ def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return x.gather(1, idx[:, None].to(torch.int64))[:, 0]
 
 
+def _healed(cfg, ctx, rounds: int):
+    """A repair interval under the healing controller: ``rounds >>
+    boost`` (at least 1) with the round-start boost, else ``rounds``."""
+    if not cfg.control.healing:
+        return rounds
+    boost = ctx.control.healing.boost
+    return torch.clamp(torch.full_like(boost, rounds) >> boost, min=1)
+
+
 class HyParView:
     name = "hyparview"
 
@@ -158,9 +167,13 @@ class HyParView:
             return ids, col
 
         # ---- timer fire masks + the BUSY predicates ------------------
-        sh_fire = (torch.remainder(ctx.rnd + ph, cfg.shuffle_every) == 0) \
+        # self-healing: while the digest shows a degraded overlay the
+        # repair cadences run at interval >> boost
+        sh_every = _healed(cfg, ctx, cfg.shuffle_every)
+        pr_every = _healed(cfg, ctx, cfg.promotion_every)
+        sh_fire = (torch.remainder(ctx.rnd + ph, sh_every) == 0) \
             & (asize0 > 0) & ctx.alive
-        pr_fire = (torch.remainder(ctx.rnd + gids, cfg.promotion_every) == 0) \
+        pr_fire = (torch.remainder(ctx.rnd + gids, pr_every) == 0) \
             & (asize0 < hv.active_min) & ctx.alive
         is_ctl = (is_join | is_fj | is_nb | is_acc | is_disc | is_sh | is_shr
                   | (kind == K.HPV_NEIGHBOR_REJECTED))
@@ -358,7 +371,9 @@ class HyParView:
         hb_epoch, hb_rnd = state.hb_epoch, state.hb_rnd
         if hv.heartbeat:
             H = cfg.rounds(hv.heartbeat_every_ms)
-            window = cfg.rounds(hv.isolation_window_ms)
+            # the escalated isolation window: stale nodes re-join sooner
+            # while the overlay is degraded
+            window = _healed(cfg, ctx, cfg.rounds(hv.isolation_window_ms))
             root = torch.argmax(ctx.faults.alive.to(torch.int8)).to(torch.int32)
             own = torch.where(gids == root,
                               torch.div(ctx.rnd, H, rounding_mode="floor"), 0)
@@ -489,6 +504,12 @@ class HyParView:
         return out[:, :n]
 
     # ---- scenario scripting ------------------------------------------
+    def join(self, cfg, state: HyParViewState, node: int, target: int):
+        """Script ``node``'s join via ``target`` (a new state)."""
+        jt = state.join_target.clone()
+        jt[node] = target
+        return state._replace(join_target=jt)
+
     def join_many(self, cfg, state: HyParViewState, nodes, targets):
         dev = state.join_target.device
         jt = state.join_target.clone()

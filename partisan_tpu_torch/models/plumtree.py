@@ -28,7 +28,7 @@ from partisan_tpu_torch.managers.base import RoundCtx
 from partisan_tpu_torch.models import handlers as handlers_mod
 from partisan_tpu_torch.ops import msg as msg_ops
 from partisan_tpu_torch.ops import plane as plane_ops
-from partisan_tpu_torch.ops import rng, select
+from partisan_tpu_torch.ops import rng, scatter, select
 
 _TAG_AAE = 401
 _AAE_EDGE_TAG = 402
@@ -48,26 +48,25 @@ class PlumtreeState(NamedTuple):
     nonmono: torch.Tensor       # int32[n] — monotone-recycle violations
 
 
-def _scatter_max(base: torch.Tensor, idx: torch.Tensor, src: torch.Tensor,
-                 dim: int = 1) -> torch.Tensor:
-    """``base.at[rows, idx].max(src, mode="drop")`` along ``dim``, where
-    index ``base.shape[dim]`` is the drop target: scatter onto one
-    padding column, then cut it."""
-    pad = list(base.shape)
-    pad[dim] = 1
-    ext = torch.cat([base, torch.zeros(pad, dtype=base.dtype,
-                                       device=base.device)], dim=dim)
-    out = ext.scatter_reduce(dim, idx.to(torch.int64), src, "amax",
-                             include_self=True)
-    return out.narrow(dim, 0, base.shape[dim])
-
-
 class Plumtree:
     name = "plumtree"
 
     def __init__(self, handler: handlers_mod.BroadcastHandler | None = None):
         self.handler = handler if handler is not None \
             else handlers_mod.VersionHandler()
+
+    @property
+    def prov_spec(self):
+        """Provenance descriptor: PT_GOSSIP records carry [slot,
+        payload×PW, hop, epoch] after the header; the hop word is the
+        sender's tree depth, the epoch word the slot-recycle
+        generation."""
+        from partisan_tpu_torch import provenance as provenance_mod
+
+        PW = self.handler.payload_words
+        return provenance_mod.ProvSpec(
+            kind=int(K.PT_GOSSIP), slot_word=T.P0,
+            hop_word=T.P1 + PW, epoch_word=T.P1 + PW + 1)
 
     def init(self, cfg, comm) -> PlumtreeState:
         n, B = comm.n_local, cfg.max_broadcasts
@@ -138,8 +137,8 @@ class Plumtree:
             # and lazy flush (the reference's pt_body)
             b64 = b.to(torch.int64)
             # ---- slot-epoch guard -------------------------------------------
-            tgt_ep = _scatter_max(state.epoch, torch.where(is_g | is_ih, b64, B),
-                                  ep_w)
+            tgt_ep = scatter.reduce_drop(
+                state.epoch, torch.where(is_g | is_ih, b64, B), ep_w, "amax")
             bumped = tgt_ep > state.epoch                           # [n, B]
             pre = torch.cat([data, state.rround[:, :, None],
                              state.epoch[:, :, None]], dim=-1)      # [n, B, PW+2]
@@ -255,6 +254,14 @@ class Plumtree:
             psrc_sel = post_sel[..., PW + 2]
             eager = live_k & ~pruned_sel & (nbrs[:, None, :]
                                             != psrc_sel[:, :, None])
+            lazy_sel = pruned_sel
+            if cfg.control.fanout:
+                # fanout governor: links beyond the round-start budget
+                # take the lazy I_HAVE path for this push
+                erank = torch.cumsum(eager, dim=-1) - 1
+                gov_cut = eager & (erank >= ctx.control.fanout.eager_cap)
+                eager = eager & ~gov_cut
+                lazy_sel = pruned_sel | gov_cut
             dst = torch.where(sel_ok[:, :, None] & eager, nbrs[:, None, :], -1)
             data_sel = post_sel[..., :PW]
             sel32 = sel.to(torch.int32)
@@ -265,7 +272,7 @@ class Plumtree:
                          post_sel[..., PW][:, :, None],
                          post_sel[..., PW + 1][:, :, None]),
             ).map(lambda w: w.reshape(n_local, S * Kn))
-            lazy_new = sel_ok[:, :, None] & live_k & pruned_sel       # [n, S, K]
+            lazy_new = sel_ok[:, :, None] & live_k & lazy_sel         # [n, S, K]
             oh_sel = sel[:, :, None] == arangeB[None, None, :]       # [n, S, B]
             lazyp = lazyp | (oh_sel[:, :, :, None]
                              & lazy_new[:, :, None, :]).any(dim=1)

@@ -43,6 +43,17 @@ def _mark(n: int, S: int, slots: torch.Tensor, dev) -> torch.Tensor:
 class RumorMongering:
     name = "demers_rumor_mongering"
 
+    @property
+    def prov_spec(self):
+        """Provenance descriptor: rumor copies are APP records with
+        payload [OP_RUMOR, slot]; no hop word, so every claim lands at
+        hop 1."""
+        from partisan_tpu_torch import provenance as provenance_mod
+
+        return provenance_mod.ProvSpec(
+            kind=int(T.MsgKind.APP), slot_word=T.P1,
+            match_word=T.P0, match_val=OP_RUMOR)
+
     def init(self, cfg, comm) -> RumorState:
         z = torch.zeros((comm.n_local, cfg.max_broadcasts),
                         dtype=torch.bool, device=comm.device)

@@ -43,6 +43,15 @@ class Stack:
                 return m.coverage(s, alive, slot)
         return torch.tensor(1.0, dtype=torch.float32)
 
+    @property
+    def prov_spec(self):
+        """Provenance descriptor of the first sub-model that defines one
+        (message kinds are globally unique)."""
+        for m in self.models:
+            if hasattr(m, "prov_spec"):
+                return m.prov_spec
+        return None
+
     # Host-side helpers address sub-models by index.
     def sub(self, state: tuple, i: int):
         return state[i]

@@ -58,7 +58,7 @@ def zero_stack(cfg, shape: tuple, device=None) -> plane_ops.Planes:
 
 def zero_wire(cfg, shape: tuple, device=None) -> plane_ops.Planes:
     """An all-empty wire-width record block, for queued-copy buffers (the
-    ack store, the delay stage's hold buffer).  No trailing plane words
-    are ported, so the wire width is ``msg_words``."""
+    ack store, the delay stage's hold buffer): ``wire_words`` planes,
+    the provenance pair and the birth round included."""
     return plane_ops.zero_planes(tuple(shape), cfg.wire_dtypes,
                                  device=device)

@@ -110,6 +110,17 @@ def append_tail(p: Planes, arr: torch.Tensor) -> Planes:
                                    for i in range(arr.shape[-1])))
 
 
+def append_words(p: Planes, *words) -> Planes:
+    """Widen a record stack with trailing word planes (the latency birth
+    round, the provenance pair), each broadcast to the record shape and
+    materialized: a stamped plane is as contiguous as the ones it joins,
+    so the interleave kernel takes it as it is."""
+    shape = p[0].shape
+    return Planes(tuple(p) + tuple(
+        torch.as_tensor(w, device=p[0].device).expand(shape).contiguous()
+        for w in words))
+
+
 def stack_records(blocks: Sequence[Planes], dim: int = 0) -> Planes:
     """``torch.stack`` over whole records (a new record axis, not the
     word axis)."""

@@ -9,6 +9,7 @@ call sites in the app models).
   winner explicitly, the LAST inbox slot addressing a column, as the
   reference's CPU scatter applies its updates in order (CUDA's
   ``index_put_`` has no defined winner among duplicates).
+- ``reduce_drop``: writes combined by an order-free max or min.
 - ``set_at``: the host-side scripting write, on a copy (a state is
   never written in place: booted states are reused across runs).
 """
@@ -36,6 +37,17 @@ def fold_true(bits: torch.Tensor, idx: tuple, dim: int = -1
     pad.index_put_(tuple(i.to(torch.int64) for i in idx),
                    torch.ones((), dtype=torch.bool, device=bits.device))
     return pad.narrow(dim, 0, bits.shape[dim])
+
+
+def reduce_drop(base: torch.Tensor, idx: torch.Tensor, src: torch.Tensor,
+                reduce: str) -> torch.Tensor:
+    """``base.at[rows, idx].max/min(src, mode="drop")`` over ``[n,
+    width]`` (``reduce`` "amax" or "amin"), where a column index equal
+    to ``width`` drops its write."""
+    n, width = base.shape
+    pad = torch.cat([base, base.new_zeros((n, 1))], dim=1)
+    return pad.scatter_reduce(1, idx.to(torch.int64), src.to(base.dtype),
+                              reduce, include_self=True)[:, :width]
 
 
 def last_writer(idx: torch.Tensor, m: torch.Tensor, width: int

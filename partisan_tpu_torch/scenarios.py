@@ -1,30 +1,36 @@
 """Scenario runners (port of ``partisan_tpu/scenarios.py``): the
-scenario suite's default configs 1-6 and the HyParView view-size
-conformance check, and bench.py's main path.
+scenario suite's default configs 1-6, the overload harness (config 8),
+the controllers' A/B harness, the HyParView view-size conformance check,
+and bench.py's main path.
 
 - :func:`config1_anti_entropy` … :func:`config6_echo`,
-  :func:`hyparview_views`, :data:`ALL`, :data:`DEFAULT_SIZES` and
-  :func:`run_all` return the reference's dicts; the CLI
-  (``python -m partisan_tpu_torch.scenarios [--only 1 ... 6] [--scale S]
-  [--health] [--device cpu]``) prints one JSON line per config.  They
-  run on the card unless given ``device="cpu"``.
+  :func:`config8_overload`, :func:`hyparview_views`, :data:`ALL`,
+  :data:`DEFAULT_SIZES` and :func:`run_all` return the reference's
+  dicts; the CLI (``python -m partisan_tpu_torch.scenarios [--only 1 ...
+  6 8] [--scale S] [--metrics] [--latency] [--health] [--provenance]
+  [--control-ab] [--slo ROUNDS] [--device cpu]``) prints one JSON line
+  per config, the planes' series on stderr.  They run on the card unless
+  given ``device="cpu"``.
+- :func:`control_ab` with :func:`fanout_ab_arm`,
+  :func:`fanout_calm_arm` and :func:`healing_ab_arm`: each controller
+  against the static config; :func:`slo_gate` is ``--slo``'s config 8
+  half (the traffic suite's half needs the traffic plane, not ported).
 - The bootstraps: the full mesh's joins via node 0, the batched
-  staggered overlay boot (with SCAMP's admission stagger) and the
-  width-operand ladder; the convergence loop polls coverage, or the
-  health digest's one int32 when the plane's cadence divides
-  ``K_PROG``; the steady-state throughput instrument.
+  staggered overlay boot (with SCAMP's admission stagger), the
+  width-operand ladder and the harnesses' one-batch join; the
+  convergence loop polls coverage, or the health digest's one int32
+  when the plane's cadence divides ``K_PROG``; the steady-state
+  throughput instrument.
 - :func:`app_model` runs the traffic suite's app models (Paxos, Lampson
   2PC, Alsberg-Day) through their scripted workload with no traffic
   plane.
 - :func:`bench_config` and :func:`bench_broadcast` are bench.py's main
-  path (its configuration with every plane off, the ladder, one
-  broadcast stepped to coverage), shared by chip_smoke.py and the
+  path (its configuration, the ladder, one broadcast stepped to
+  coverage; its plane flags optional), shared by chip_smoke.py and the
   profiler so both drive the same path.
 
 Every stepping phase runs ``K_PROG`` rounds between host checks, as the
-reference does.  Only the health plane's opt-in (``HEALTH``, the CLI's
-``--health``) is carried; the other planes' opt-ins are refused by
-``Config``.
+reference does.
 """
 
 from __future__ import annotations
@@ -37,18 +43,27 @@ import numpy as np
 import torch
 
 from partisan_tpu_torch import cluster as cluster_mod
+from partisan_tpu_torch import control as control_mod
 from partisan_tpu_torch import faults as faults_mod
 from partisan_tpu_torch import health as health_mod
-from partisan_tpu_torch.config import (Config, HyParViewConfig,
-                                       PlumtreeConfig)
+from partisan_tpu_torch import latency as latency_mod
+from partisan_tpu_torch import metrics as metrics_mod
+from partisan_tpu_torch import provenance as provenance_mod
+from partisan_tpu_torch.config import (Config, ControlConfig,
+                                       HyParViewConfig, PlumtreeConfig)
 from partisan_tpu_torch.models.plumtree import Plumtree
 
 K_PROG = 10
 
-# Health-plane opt-in (--health): topology snapshots every K_PROG rounds,
-# so each batch ends with a digest describing exactly its final state;
-# _converge then polls the packed digest word.
+# Plane opt-ins (the CLI's --metrics, --latency, --health,
+# --provenance): scenarios run with the plane on and print its series to
+# stderr as JSON lines beside the unchanged stdout lines.  With the health
+# plane on, snapshots come every K_PROG rounds, so each batch ends with a
+# digest describing exactly its final state and _converge polls it.
+METRICS = False
+LATENCY = False
 HEALTH = False
+PROVENANCE = False
 
 
 def _sync(st) -> None:
@@ -59,17 +74,60 @@ def _sync(st) -> None:
 
 
 def _metrics_cfg(cfg: Config) -> Config:
-    """Apply the module-level plane opt-ins to a scenario config (only
-    the health plane is carried)."""
+    """Apply the module-level plane opt-ins to a scenario config."""
+    if METRICS:
+        cfg = cfg.replace(metrics=True, metrics_ring=512)
+    if LATENCY:
+        cfg = cfg.replace(latency=True)
     if HEALTH:
         cfg = cfg.replace(health=K_PROG, health_ring=512)
+    if PROVENANCE:
+        cfg = cfg.replace(provenance=True, provenance_ring=512)
     return cfg
 
 
 def _mark_bcast(st, node, slot):
-    """Mark a broadcast's origin in the provenance forest: a no-op while
-    the provenance plane is not carried."""
-    return st
+    """Mark a scenario broadcast's origin in the provenance forest (a
+    no-op when the plane is off)."""
+    if st.provenance == ():
+        return st
+    return st._replace(provenance=provenance_mod.mark_origin(
+        st.provenance, node, slot, rnd=int(st.rnd)))
+
+
+def _emit_metrics(cfg: Config, st, label) -> None:
+    """Print a run's plane series to stderr as JSON lines tagged with the
+    scenario label: the metrics rows and totals, the latency percentiles,
+    the health rows, the provenance headline."""
+    import json
+    import sys
+
+    names = tuple(c.name for c in cfg.channels)
+    if st.metrics != ():
+        snap = metrics_mod.snapshot(st.metrics)
+        for row in metrics_mod.rows(snap, channels=names):
+            print(json.dumps({"kind": "metrics", "config": label, **row}),
+                  file=sys.stderr)
+        print(json.dumps({"kind": "metrics_totals", "config": label,
+                          **metrics_mod.totals(snap)}), file=sys.stderr)
+    if st.latency != ():
+        print(json.dumps({"kind": "latency", "config": label,
+                          **latency_mod.percentiles(st.latency,
+                                                    channels=names)}),
+              file=sys.stderr)
+    if st.health != ():
+        for row in health_mod.rows(health_mod.snapshot(st.health)):
+            print(json.dumps({"kind": "health", "config": label, **row}),
+                  file=sys.stderr)
+    if st.provenance != ():
+        snap = provenance_mod.snapshot(st.provenance)
+        t = provenance_mod.tree(snap, 0)
+        print(json.dumps({"kind": "provenance", "config": label,
+                          **provenance_mod.redundancy(snap),
+                          "tree_depth_mean": t["depth_mean"],
+                          "tree_depth_max": t["depth_max"],
+                          "coverage_round": t["cover_round"]}),
+              file=sys.stderr)
 
 
 def make_cluster_auto(cfg: Config, model=None, interpose=None,
@@ -312,6 +370,7 @@ def config1_anti_entropy(n=16, max_rounds=120, device=None):
     st = _mark_bcast(st._replace(model=model.broadcast(st.model, 0, 0)),
                      0, 0)
     st, conv = _converge(cl, st, _coverage(model), max_rounds)
+    _emit_metrics(cfg, st, 1)
     return {"config": 1, "n": n, "convergence_rounds": conv - start,
             "rounds_per_sec": round(_throughput(cl, st), 1)}
 
@@ -338,6 +397,7 @@ def config2_rumor(n=1000, max_rounds=200, device=None):
         if len(trail) >= 3 and trail[-1][1] == trail[-3][1]:
             break   # plateaued
     plateau = trail[-1][1]
+    _emit_metrics(cfg, st, 2)
     infection = next(r for (r, c) in trail if c >= 0.95 * plateau) - start
     return {"config": 2, "n": n, "fanout": 2,
             "infection_rounds": infection,
@@ -361,6 +421,7 @@ def config3_plumtree_drop(n=10_000, drop=0.05, max_rounds=400, device=None):
     st = _mark_bcast(st._replace(
         model=model.broadcast(st.model, 0, 0, start)), 0, 0)
     st, conv = _converge(cl, st, _coverage(model), max_rounds)
+    _emit_metrics(cfg, st, 3)
     bound = (2 * math.ceil(math.log2(max(n, 2))) + 8 * 3 + K_PROG)
     return {"config": 3, "n": n, "link_drop": drop,
             "repair_rounds": (conv - start) if conv >= 0 else -1,
@@ -389,6 +450,7 @@ def config4_scamp_churn(n=10_000, churn_per_min=0.30, rounds=120,
             st.faults, cfg.seed, st.rnd, p, p))
         st = cl.steps(st, K_PROG)
     _sync(st)
+    _emit_metrics(cfg, st, 4)
     sizes = (st.manager.partial >= 0).sum(dim=1).cpu().numpy()
     alive = st.faults.alive.cpu().numpy()
     s = sizes[alive]
@@ -480,6 +542,7 @@ def config5_causal_crash(n=100_000, senders=64, crashes=16, max_rounds=400,
         st = cl.steps(st, K_PROG)
     _sync(st)
 
+    _emit_metrics(cfg, st, 5)
     logs = P2PChat.logs(stack.sub(st.model, 1))
     ordered = delivered = 0
     for r in rcv:
@@ -567,6 +630,245 @@ def config6_echo(n=2, sizes_kb=(1024, 2048, 4096, 8192),
             "rows": rows}
 
 
+def config8_overload(n=96, waves=10, wave_len=12, adaptive=True, seed=7,
+                     device=None):
+    """Bulk-traffic overload under channel capacity, the backpressure
+    controller's A/B harness: bursts of four simultaneous fresh Plumtree
+    broadcasts saturate the per-edge broadcast lanes (``lane_rate=1``);
+    with ``adaptive=True`` the controller sheds the stalest queued
+    records.  Returns the per-channel p99/max/count of
+    ``latency.percentiles``, the ``--slo`` gate's input."""
+    n = max(n, 32)
+    ctl = ControlConfig(backpressure=True) if adaptive else ControlConfig()
+    cfg = Config(n_nodes=n, seed=seed, peer_service_manager="hyparview",
+                 msg_words=16, partition_mode="groups",
+                 latency=True, channel_capacity=True, lane_rate=1,
+                 outbox_cap=48, max_broadcasts=8, control=ctl,
+                 plumtree=PlumtreeConfig(aae=False))
+    model = Plumtree()
+    cl = cluster_mod.Cluster(cfg, model=model, device=device)
+    st = _boot_joinall(cl, 40)
+    rng = np.random.default_rng(9)
+    ver = 1
+    for _ in range(waves):
+        mm = st.model
+        for s in range(4):
+            src = int(rng.integers(0, n))
+            mm = model.broadcast(mm, src, s, ver + 1, fresh=True)
+        ver += 1
+        st = cl.steps(st._replace(model=mm), wave_len)
+    _sync(st)
+    names = tuple(c.name for c in cfg.channels)
+    pct = latency_mod.percentiles(st.latency, channels=names)
+    out = {"config": 8, "n": n, "adaptive": adaptive,
+           "waves": waves, "wave_len": wave_len,
+           "coverage": round(float(model.coverage(
+               st.model, st.faults.alive, 3, version=ver)), 4),
+           "outbox_shed": int(st.outbox.shed),
+           "p99": {ch: pct[ch]["p99"] for ch in names},
+           "age_max": {ch: pct[ch]["max"] for ch in names},
+           "delivered": {ch: pct[ch]["count"] for ch in names}}
+    if adaptive:
+        out["control"] = control_mod.poll(st.control)
+    return out
+
+
+def slo_gate(p99: dict, bound: int) -> tuple[bool, list[dict]]:
+    """Per-channel p99 pass/fail rows against ``bound`` rounds; channels
+    with no traffic pass."""
+    rows = []
+    ok = True
+    for ch, v in p99.items():
+        passed = v is None or v <= bound
+        ok = ok and passed
+        rows.append({"kind": "slo", "channel": ch, "p99": v,
+                     "bound": bound, "pass": passed})
+    return ok, rows
+
+
+def _boot_joinall(cl, settle: int):
+    """Every node joins via node 0 in one scripted batch, then ``settle``
+    rounds: the A/B harnesses' bootstrap."""
+    n = cl.cfg.n_nodes
+    st = cl.init()
+    m = cl.manager.join_many(cl.cfg, st.manager, list(range(1, n)),
+                             [0] * (n - 1))
+    return cl.steps(st._replace(manager=m), settle)
+
+
+def fanout_ab_arm(adaptive: bool, n=128, waves=12, wave_len=10, seed=3,
+                  device=None) -> dict:
+    """One arm of the fanout governor's A/B: recycled-slot broadcasts
+    (each resets the learned pruned flags) with AAE off and shuffles
+    quiesced; returns the cumulative and steady-half redundancy ratios,
+    the last slot's coverage and, adaptive, the controller's poll (and
+    the final state under ``_state``)."""
+    ctl = ControlConfig(fanout=True) if adaptive else ControlConfig()
+    cfg = Config(n_nodes=n, seed=seed, peer_service_manager="hyparview",
+                 msg_words=16, partition_mode="groups",
+                 provenance=True, provenance_ring=512,
+                 max_broadcasts=8, control=ctl, lazy_tick_ms=3000,
+                 hyparview=HyParViewConfig(active_min=6, active_max=8,
+                                           shuffle_interval_ms=60_000),
+                 plumtree=PlumtreeConfig(aae=False))
+    model = Plumtree()
+    cl = cluster_mod.Cluster(cfg, model=model, device=device)
+    st = _boot_joinall(cl, 60)
+    rng = np.random.default_rng(5)
+    ver = 1
+    for w in range(waves):
+        st = st._replace(model=model.broadcast(
+            st.model, int(rng.integers(0, n)), w % 4, ver + 1,
+            fresh=True))
+        ver += 1
+        st = cl.steps(st, wave_len)
+    traffic_end = int(st.rnd)
+    # one more window for the last wave's lazy/graft repair
+    st = cl.steps(st, wave_len)
+    _sync(st)
+    snap = provenance_mod.snapshot(st.provenance)
+    rr = np.asarray(snap["rounds"])
+    g = np.asarray(snap["gossip"]).astype(float)
+    d = np.asarray(snap["dup"]).sum(axis=1).astype(float)
+    tail = (rr >= traffic_end - (waves // 2) * wave_len) \
+        & (rr < traffic_end)
+    arm = {
+        "redundancy_ratio": provenance_mod.redundancy(
+            snap)["redundancy_ratio"],
+        "steady_redundancy_ratio": round(
+            float(d[tail].sum()) / max(float(g[tail].sum()), 1), 4),
+        "coverage": round(float(model.coverage(
+            st.model, st.faults.alive, (waves - 1) % 4,
+            version=ver)), 4),
+    }
+    if adaptive:
+        arm.update(control_mod.poll(st.control))
+        arm["_state"] = st
+    return arm
+
+
+def fanout_calm_arm(adaptive: bool, n=64, seed=4, device=None) -> dict:
+    """The calm run: one broadcast, no recycles, then 30 quiet rounds.
+    The adaptive arm must match the static arm's coverage and redundancy
+    and make no adjustment on the quiet tail."""
+    ctl = ControlConfig(fanout=True) if adaptive else ControlConfig()
+    cfg = Config(n_nodes=n, seed=seed, peer_service_manager="hyparview",
+                 msg_words=16, partition_mode="groups", provenance=True,
+                 provenance_ring=256, max_broadcasts=4, control=ctl,
+                 plumtree=PlumtreeConfig(aae=False))
+    model = Plumtree()
+    cl = cluster_mod.Cluster(cfg, model=model, device=device)
+    st = _boot_joinall(cl, 40)
+    st = st._replace(model=model.broadcast(st.model, 0, 0, 2))
+    st = cl.steps(st, 30)
+    adj_after_wave = int(st.control.fanout.adjustments) if adaptive else 0
+    st = cl.steps(st, 30)                 # the quiet tail
+    _sync(st)
+    arm = {"redundancy_ratio": provenance_mod.redundancy(
+               st.provenance)["redundancy_ratio"],
+           "coverage": round(float(model.coverage(
+               st.model, st.faults.alive, 0, version=2)), 4)}
+    if adaptive:
+        arm.update(control_mod.poll(st.control))
+        arm["quiet_adjustments"] = (arm["fanout_adjustments"]
+                                    - adj_after_wave)
+    return arm
+
+
+def healing_ab_arm(adaptive: bool, n=128, seed=11, crash_frac=0.35,
+                   device=None) -> dict:
+    """One arm of the healing A/B: a crash batch degrades the digest;
+    returns the rounds until ``health.overlay_ok`` holds again."""
+    ctl = ControlConfig(healing=True) if adaptive else ControlConfig()
+    cfg = Config(n_nodes=n, seed=seed, peer_service_manager="hyparview",
+                 msg_words=16, partition_mode="groups", health=5,
+                 health_ring=256, control=ctl)
+    cl = cluster_mod.Cluster(cfg, model=Plumtree(), device=device)
+    st = _boot_joinall(cl, 60)
+    rng = np.random.default_rng(13)
+    victims = rng.choice(np.arange(1, n), size=int(n * crash_frac),
+                         replace=False)
+    st = st._replace(faults=faults_mod.crash_many(
+        st.faults, [int(v) for v in victims]))
+    r0 = int(st.rnd)
+    healed = -1
+    for _ in range(60):
+        st = cl.steps(st, 5)
+        if health_mod.overlay_ok(health_mod.digest(st)):
+            healed = int(st.rnd) - r0
+            break
+    arm = {"rounds_to_heal": healed}
+    if adaptive:
+        arm.update(control_mod.poll(st.control))
+        arm["_state"] = st
+    return arm
+
+
+def _strip_state(arm: dict) -> dict:
+    """Drop the state handle before JSON export."""
+    return {k: v for k, v in arm.items() if k != "_state"}
+
+
+def control_ab(scale: float = 1.0, device=None) -> dict:
+    """The three controllers' A/B: for each, the closed loop against the
+    static config on its headline metric (steady redundancy, per-channel
+    delivery p99 under overload, rounds to heal), plus the fanout
+    governor's calm-run no-regression check."""
+    out: dict = {}
+    n = max(64, int(128 * scale))
+    fan_s = fanout_ab_arm(False, n=n, device=device)
+    fan_a = _strip_state(fanout_ab_arm(True, n=n, device=device))
+    out["fanout"] = {
+        "metric": "steady_redundancy_ratio", "n": n,
+        "static": fan_s, "adaptive": fan_a,
+        "win": fan_a["steady_redundancy_ratio"]
+        < fan_s["steady_redundancy_ratio"],
+        "coverage_ok": fan_a["coverage"] == 1.0,
+    }
+    cn = max(48, int(64 * scale))
+    calm_s = fanout_calm_arm(False, n=cn, device=device)
+    calm_a = fanout_calm_arm(True, n=cn, device=device)
+    out["fanout_calm"] = {
+        "static": calm_s, "adaptive": calm_a,
+        "no_regression": (calm_a["coverage"] == calm_s["coverage"]
+                          and calm_a["redundancy_ratio"]
+                          == calm_s["redundancy_ratio"]
+                          and calm_a["quiet_adjustments"] == 0),
+    }
+    bp_n = max(48, int(96 * scale))
+    bp_s = config8_overload(n=bp_n, adaptive=False, device=device)
+    bp_a = config8_overload(n=bp_n, adaptive=True, device=device)
+    bulk = [ch for ch, v in bp_s["p99"].items() if v is not None]
+    # a trafficked channel must stay trafficked and strictly beat the
+    # static p99
+    out["backpressure"] = {
+        "metric": "p99_delivery_age", "n": bp_n,
+        "static": bp_s, "adaptive": bp_a,
+        "win": bool(bulk) and all(
+            bp_a["p99"][ch] is not None
+            and bp_a["delivered"][ch] > 0
+            and bp_a["p99"][ch] < bp_s["p99"][ch]
+            for ch in bulk),
+        "coverage_ok": bp_a["coverage"] == 1.0,
+    }
+    hn = max(64, int(128 * scale))
+    heal_s = healing_ab_arm(False, n=hn, device=device)
+    heal_a = _strip_state(healing_ab_arm(True, n=hn, device=device))
+    out["healing"] = {
+        "metric": "rounds_to_heal", "n": hn,
+        "static": heal_s, "adaptive": heal_a,
+        "win": (heal_a["rounds_to_heal"] != -1
+                and (heal_s["rounds_to_heal"] == -1
+                     or heal_a["rounds_to_heal"]
+                     < heal_s["rounds_to_heal"])),
+    }
+    out["all_win"] = bool(out["fanout"]["win"]
+                          and out["backpressure"]["win"]
+                          and out["healing"]["win"]
+                          and out["fanout_calm"]["no_regression"])
+    return out
+
+
 ALL = {
     1: config1_anti_entropy,
     2: config2_rumor,
@@ -574,17 +876,26 @@ ALL = {
     4: config4_scamp_churn,
     5: config5_causal_crash,
     6: config6_echo,
+    8: config8_overload,
 }
 
-DEFAULT_SIZES = {1: 16, 2: 1000, 3: 10_000, 4: 10_000, 5: 100_000, 6: 2}
+DEFAULT_SIZES = {1: 16, 2: 1000, 3: 10_000, 4: 10_000, 5: 100_000, 6: 2,
+                 8: 96}
+
+# Left out of run_all's default sweep: the overload scenario is the
+# backpressure A/B harness, driven by --slo and --control-ab (or --only).
+OPT_IN = frozenset({8})
 
 
 def run_all(scale: float = 1.0, only=None, device=None) -> list[dict]:
-    """Configs 1-6 (or ``only``) at ``DEFAULT_SIZES * scale``; config 6
-    runs ``max(50, int(1000 * scale))`` round trips per sender."""
+    """Configs 1-6 (or ``only``, which may name config 8) at
+    ``DEFAULT_SIZES * scale``; config 6 runs ``max(50, int(1000 *
+    scale))`` round trips per sender."""
     out = []
     for i, fn in ALL.items():
         if only and i not in only:
+            continue
+        if not only and i in OPT_IN:
             continue
         if i == 6:
             out.append(fn(num_messages=max(50, int(1000 * scale)),
@@ -745,15 +1056,23 @@ def bench_config(n: int) -> Config:
                   plumtree=PlumtreeConfig(push_slots=2, lazy_cap=4))
 
 
-def bench_broadcast(n: int, device=None, widths=None) -> dict:
+def bench_broadcast(n: int, device=None, widths=None, metrics=False,
+                    latency=False, provenance=False,
+                    flight_rounds=0) -> dict:
     """The bench main path at ``n`` nodes: init, the width-operand ladder
     (``widths``, default [8192, n]), one broadcast from node 0 slot 0,
-    stepped to coverage 1.0 (raises if it is not reached).  Returns the
-    cluster, model and state, the broadcast and convergence rounds, and
-    the wall seconds of each phase."""
+    stepped to coverage 1.0 (raises if it is not reached).  ``metrics``,
+    ``latency``, ``provenance`` and ``flight_rounds`` turn bench.py's
+    plane flags on (with provenance, node 0 is marked as the broadcast's
+    origin first, as bench.py does).  Returns the cluster, model and
+    state, the broadcast and convergence rounds, and the wall seconds of
+    each phase."""
     model = Plumtree()
+    cfg = bench_config(n).replace(metrics=metrics, latency=latency,
+                                  provenance=provenance,
+                                  flight_rounds=flight_rounds)
     t0 = time.perf_counter()
-    cl = cluster_mod.Cluster(bench_config(n), model=model, device=device)
+    cl = cluster_mod.Cluster(cfg, model=model, device=device)
     st = cl.init()
     _sync(st)
     t_init = time.perf_counter() - t0
@@ -763,6 +1082,9 @@ def bench_broadcast(n: int, device=None, widths=None) -> dict:
     t_boot = time.perf_counter() - t0
     start = int(st.rnd)
     boot = st
+    if provenance:
+        st = st._replace(provenance=provenance_mod.mark_origin(
+            st.provenance, 0, 0, rnd=start))
     st = st._replace(model=model.broadcast(st.model, 0, 0, start))
     t0 = time.perf_counter()
     st, conv = _converge(
@@ -777,24 +1099,90 @@ def bench_broadcast(n: int, device=None, widths=None) -> dict:
             "init_s": t_init, "bootstrap_s": t_boot, "convergence_s": t_conv}
 
 
+def bench_planes_report(cfg: Config, st) -> list[dict]:
+    """bench.py's stderr lines for the planes that are on: the metrics
+    totals, the latency percentiles, the provenance headline."""
+    names = tuple(c.name for c in cfg.channels)
+    n = cfg.n_nodes
+    out = []
+    if st.metrics != ():
+        out.append({"kind": "metrics_totals", "n": n,
+                    **metrics_mod.totals(metrics_mod.snapshot(st.metrics))})
+    if st.latency != ():
+        out.append({"kind": "latency", "n": n,
+                    **latency_mod.percentiles(st.latency, channels=names)})
+    if st.provenance != ():
+        snap = provenance_mod.snapshot(st.provenance)
+        tr = provenance_mod.tree(snap, 0)
+        out.append({"kind": "provenance", "n": n,
+                    **provenance_mod.redundancy(snap),
+                    "tree_depth_mean": tr["depth_mean"],
+                    "tree_depth_max": tr["depth_max"],
+                    "branching_mean": tr["branching_mean"],
+                    "coverage_round": tr["cover_round"]})
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
     import json
 
-    global HEALTH
+    global METRICS, LATENCY, HEALTH, PROVENANCE
     ap = argparse.ArgumentParser(
         prog="python -m partisan_tpu_torch.scenarios",
-        description="the scenario suite's configs 1-6, one JSON line each")
+        description="the scenario suite's configs 1-6 (and 8), one JSON "
+                    "line each")
     ap.add_argument("--scale", type=float, default=1.0)
     ap.add_argument("--only", type=int, nargs="*", default=None,
                     choices=sorted(ALL))
+    ap.add_argument("--metrics", action="store_true",
+                    help="run with the metrics ring on; per-round series "
+                         "to stderr as JSON lines")
+    ap.add_argument("--latency", action="store_true",
+                    help="run with the latency plane on; per-channel "
+                         "delivery-age percentiles to stderr")
     ap.add_argument("--health", action="store_true",
                     help="run with the health plane on (snapshots every "
                          "K_PROG rounds; convergence polls the digest)")
+    ap.add_argument("--provenance", action="store_true",
+                    help="run with the provenance plane on; redundancy, "
+                         "tree depth and coverage round to stderr")
+    ap.add_argument("--control-ab", action="store_true",
+                    help="run the three controllers' A/B and print one "
+                         "JSON object")
+    ap.add_argument("--slo", type=int, default=None, metavar="ROUNDS",
+                    help="config 8's static and adaptive arms and the "
+                         "adaptive per-channel p99 gate at ROUNDS")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
     args = ap.parse_args(argv)
+    METRICS = METRICS or args.metrics
+    LATENCY = LATENCY or args.latency
     HEALTH = HEALTH or args.health
+    PROVENANCE = PROVENANCE or args.provenance
+    if args.control_ab:
+        print(json.dumps(control_ab(scale=args.scale, device=args.device)),
+              flush=True)
+        return 0
+    if args.slo is not None:
+        n8 = max(48, int(DEFAULT_SIZES[8] * args.scale))
+        static = config8_overload(n=n8, adaptive=False, device=args.device)
+        adaptive = config8_overload(n=n8, adaptive=True, device=args.device)
+        print(json.dumps({"kind": "overload_static", **static}), flush=True)
+        print(json.dumps({"kind": "overload_adaptive", **adaptive}),
+              flush=True)
+        ok, rows = slo_gate(adaptive["p99"], args.slo)
+        for row in rows:
+            print(json.dumps(row), flush=True)
+        print(json.dumps({"kind": "slo_verdict", "pass": ok,
+                          "bound": args.slo}), flush=True)
+        # the traffic suite's half of --slo (traffic_slo) needs the
+        # traffic plane, which is not ported
+        print(json.dumps({"kind": "traffic_slo", "ported": False,
+                          "reason": "the traffic plane (workload.py, "
+                                    "soak.py) is not ported yet"}),
+              flush=True)
+        return 0 if ok else 1
     for r in run_all(scale=args.scale, only=args.only, device=args.device):
         print(json.dumps(r), flush=True)
     return 0

@@ -20,9 +20,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from partisan_tpu_torch import channels, cluster, delivery
+from partisan_tpu_torch import channels, cluster, control, delivery
 from partisan_tpu_torch import device as device_mod
-from partisan_tpu_torch import faults, health
+from partisan_tpu_torch import faults, health, latency, metrics, provenance
 from partisan_tpu_torch.managers import (client_server, fullmesh,
                                          hyparview, scamp, static)
 from partisan_tpu_torch.models import (alsberg_day, anti_entropy,
@@ -42,7 +42,10 @@ _TYPES = {cls.__name__: cls for cls in (
     rumor_mongering.RumorState, health.HealthState, delivery.CausalLane,
     delivery.P2PLane, channels.OutboxState, p2p_chat.P2PChatState,
     causal_chat.ChatState, echo.EchoState, paxos.PaxosState,
-    commit.CommitState, alsberg_day.AlsbergDayState)}
+    commit.CommitState, alsberg_day.AlsbergDayState,
+    metrics.MetricsState, latency.LatencyState, latency.FlightState,
+    provenance.ProvenanceState, control.ControlState, control.FanoutState,
+    control.BackpressureState, control.HealingState)}
 
 # (NamedTuple, field) leaves the reference keeps as uint32 and the port
 # holds in int64.

@@ -78,7 +78,8 @@ class MsgKind(enum.IntEnum):
 
 
 # kind/channel/flags fit int8, walk and relay TTLs int16; ids, clocks,
-# lanes and payload words stay int32.
+# lanes, payload words, the provenance source and the latency birth round
+# stay int32; the provenance hop word (``msg_words + 1``) is int16.
 NARROW_WIRE_DTYPES = {
     W_KIND: torch.int8,
     W_CHANNEL: torch.int8,
@@ -87,6 +88,10 @@ NARROW_WIRE_DTYPES = {
 }
 
 
-def wire_dtype(i: int) -> torch.dtype:
-    """Storage dtype of wire word ``i``."""
+def wire_dtype(i: int, msg_words: int | None = None,
+               provenance: bool = False) -> torch.dtype:
+    """Storage dtype of wire word ``i``; ``msg_words``/``provenance``
+    locate the trailing provenance hop word, stored int16."""
+    if provenance and msg_words is not None and i == msg_words + 1:
+        return torch.int16
     return NARROW_WIRE_DTYPES.get(i, torch.int32)

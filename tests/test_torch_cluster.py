@@ -26,6 +26,7 @@ from partisan_tpu_torch import scenarios as tsc
 from partisan_tpu_torch import state_io
 from partisan_tpu_torch.cluster import Cluster as TCluster
 from partisan_tpu_torch.config import Config as TConfig
+from partisan_tpu_torch.config import ControlConfig as TControlCfg
 from partisan_tpu_torch.config import HyParViewConfig as THyParView
 from partisan_tpu_torch.config import PlumtreeConfig as TPlumtreeCfg
 from partisan_tpu_torch.models.plumtree import Plumtree as TPlumtree
@@ -284,7 +285,9 @@ def test_port_imports_no_jax():
             "partisan_tpu_torch.ops.scatter, "
             "partisan_tpu_torch.models.commit, "
             "partisan_tpu_torch.models.alsberg_day, "
-            "partisan_tpu_torch.prop, partisan_tpu_torch.prop_models; "
+            "partisan_tpu_torch.prop, partisan_tpu_torch.prop_models, "
+            "partisan_tpu_torch.metrics, partisan_tpu_torch.latency, "
+            "partisan_tpu_torch.provenance, partisan_tpu_torch.control; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'partisan_tpu' "
             "or m.startswith('partisan_tpu.')]; "
@@ -307,14 +310,15 @@ def test_entry_points_default_to_cuda():
 
 
 @pytest.mark.parametrize("override", [
-    dict(metrics=True), dict(latency=True), dict(flight_rounds=8),
-    dict(provenance=True), dict(plane_major=False),
-    dict(control=object()), dict(traffic=object()),
+    dict(distance=object()), dict(watchdog=object()),
+    dict(traffic=object(), latency=True),
+    dict(ingress=object(), provenance=True), dict(plane_major=False),
+    dict(salt_operand=True, metrics=True), dict(traffic=object()),
     dict(salt_operand=True),
     dict(elastic=True),
     dict(hyparview=THyParView(xbot=True)),
     dict(ingress=object()),
-    dict(health=10, metrics=True),
+    dict(health=10, watchdog=object()),
     dict(peer_service_manager="xbot"),
 ])
 def test_config_refuses_unported_options(override):
@@ -333,6 +337,9 @@ def test_config_refuses_unported_options(override):
     dict(causal_labels=("chat",), n_actors=8, causal_buf_cap=4),
     dict(causal_p2p_labels=("p2p",), p2p_dst_cap=8, p2p_src_cap=8),
     dict(channel_capacity=True, lane_rate=3, outbox_cap=8),
+    dict(metrics=True, metrics_ring=16), dict(latency=True, flight_rounds=8),
+    dict(provenance=True, provenance_ring=16), dict(health=10, metrics=True),
+    dict(health=5, control=TControlCfg(healing=True)),
 ])
 def test_config_accepts_ported_options(override):
     from partisan_tpu_torch import managers

@@ -13,8 +13,10 @@ and the kernels with the most device time.  One more window traces
 ``record`` over ``--rounds`` rounds (the capture arm with the
 interleave kernel), and a third the same ``record`` under an all-pass
 ``OmissionSchedule`` (the Filibuster path's round: the generic wire
-arm with interposition).  The card's name and power limit ride every
-line.
+arm with interposition).  With ``--planes`` two more windows follow:
+the same steady rounds with metrics, latency and provenance on, and
+with a 4-round flight ring as well (the generic arm, one interleave a
+round).  The card's name and power limit ride every line.
 """
 
 from __future__ import annotations
@@ -93,6 +95,9 @@ def main() -> int:
     ap.add_argument("--n", type=int, default=32768)
     ap.add_argument("--rounds", type=int, default=10)
     ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--planes", action="store_true",
+                    help="also profile the round with the planes on, and "
+                         "with a flight ring")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_profile_round: no CUDA device", file=sys.stderr)
@@ -129,6 +134,23 @@ def main() -> int:
     print(json.dumps({"n": n, **window(rec_om, args.rounds,
                                        "record_omission", args.top, tag)}),
           flush=True)
+    if not args.planes:
+        return 0
+    from partisan_tpu_torch import latency
+
+    run = sc.bench_broadcast(n, metrics=True, latency=True, provenance=True)
+    cl_p, st_p = run["cluster"], run["cluster"].steps(run["state"],
+                                                      sc.K_PROG)
+    print(json.dumps({"n": n, **window(
+        lambda: cl_p.steps(st_p, args.rounds), args.rounds,
+        "steady_planes", args.top, tag)}), flush=True)
+    cfg_f = cl_p.cfg.replace(flight_rounds=4)
+    cl_f = cluster_mod.Cluster(cfg_f, model=cl_p.model)
+    st_f = st_p._replace(flight=latency.flight_init(
+        cfg_f, cl_f.flight_shape(st_p), device=st_p.rnd.device))
+    print(json.dumps({"n": n, **window(
+        lambda: cl_f.steps(st_f, args.rounds), args.rounds,
+        "flight_planes", args.top, tag)}), flush=True)
     return 0
 
 
