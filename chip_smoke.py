@@ -279,11 +279,32 @@ def time_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _self_device_us(e) -> float:
-    for attr in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(e, attr):
-            return float(getattr(e, attr))
-    return 0.0
+def window_counts(prof) -> dict:
+    """One pass over a finished torch.profiler window's raw events:
+    the card's kernels and copies (how many, their summed device
+    microseconds, both also per name), the copies each way, and the host
+    reads (``aten::_local_scalar_dense``: every ``bool()``/``int()`` of a
+    card tensor).  ``key_averages`` gives the same counts but builds an
+    event tree first, about 2 s a round at bench's 3500 launches."""
+    from torch._C._autograd import DeviceType
+
+    out = {"launches": 0, "device_us": 0.0, "host_reads": 0, "dtoh": 0,
+           "htod": 0, "by_name": {}}
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.device_type() == DeviceType.CUDA:
+            us = e.duration_ns() / 1e3
+            if us <= 0:
+                continue
+            out["launches"] += 1
+            out["device_us"] += us
+            n, t = out["by_name"].get(name, (0, 0.0))
+            out["by_name"][name] = (n + 1, t + us)
+            out["dtoh"] += "DtoH" in name
+            out["htod"] += "HtoD" in name
+        elif name == "aten::_local_scalar_dense":
+            out["host_reads"] += 1
+    return out
 
 
 def device_host_ms(fn, reps: int = 20) -> tuple:
@@ -305,9 +326,7 @@ def device_host_ms(fn, reps: int = 20) -> tuple:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    busy = sum(_self_device_us(e) for e in prof.key_averages()
-               if str(getattr(e, "device_type", "")).endswith("CUDA"))
-    return busy / 1e3 / reps, host
+    return window_counts(prof)["device_us"] / 1e3 / reps, host
 
 
 def timed(fn, reps: int = 20) -> dict:
@@ -743,13 +762,14 @@ def strip_rate(d: dict) -> dict:
             for k, v in d.items() if k not in WALL_KEYS}
 
 
-def round_profile(fn, rounds: int) -> dict:
+def round_profile(fn, rounds: int, kernel: str | None = None) -> dict:
     """Per round of ``fn`` (which runs ``rounds`` rounds): the wall of a
     bare call, then under torch.profiler the kernels' summed device time,
-    the kernel launches (the copies among them), the host reads
-    (``aten::_local_scalar_dense``: every ``bool()``/``int()`` of a card
-    tensor) and the copies device -> host and host -> device (each a
-    ``.cpu()``, or a Python number turned into a card tensor)."""
+    the kernel launches (the copies among them), the host reads and the
+    copies device -> host and host -> device (each a ``.cpu()``, or a
+    Python number turned into a card tensor).  With ``kernel``, also the
+    launches and device ms per launch of the kernels whose name holds
+    it."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -761,22 +781,22 @@ def round_profile(fn, rounds: int) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    ev = prof.key_averages()
-    kern = [e for e in ev if _self_device_us(e) > 0
-            and str(getattr(e, "device_type", "")).endswith("CUDA")]
-    busy = sum(_self_device_us(e) for e in kern) / 1e6
-
-    def per_round(events, pred):
-        return sum(e.count for e in events if pred(e.key)) / rounds
-
-    return {"rounds": rounds, "wall_ms_per_round": wall * 1e3 / rounds,
-            "device_ms_per_round": busy * 1e3 / rounds,
-            "device_idle_share": max(0.0, 1.0 - busy / wall),
-            "launches_per_round": sum(e.count for e in kern) / rounds,
-            "host_reads_per_round": per_round(
-                ev, lambda k: k == "aten::_local_scalar_dense"),
-            "copies_dtoh_per_round": per_round(kern, lambda k: "DtoH" in k),
-            "copies_htod_per_round": per_round(kern, lambda k: "HtoD" in k)}
+    c = window_counts(prof)
+    busy = c["device_us"] / 1e6
+    out = {"rounds": rounds, "wall_ms_per_round": wall * 1e3 / rounds,
+           "device_ms_per_round": busy * 1e3 / rounds,
+           "device_idle_share": max(0.0, 1.0 - busy / wall),
+           "launches_per_round": c["launches"] / rounds,
+           "host_reads_per_round": c["host_reads"] / rounds,
+           "copies_dtoh_per_round": c["dtoh"] / rounds,
+           "copies_htod_per_round": c["htod"] / rounds}
+    if kernel is not None:
+        hits = [v for k, v in c["by_name"].items() if kernel in k]
+        n_k = sum(n for n, _ in hits)
+        out[f"{kernel}_launches"] = n_k
+        out[f"{kernel}_device_ms_per_launch"] = \
+            sum(us for _, us in hits) / 1e3 / max(n_k, 1)
+    return out
 
 
 def lane_setups(device: str) -> dict:
@@ -1379,13 +1399,15 @@ def assert_rounds_identical(a: list, b: list, label: str) -> int:
 
 def planes_setups(device: str) -> dict:
     """Phase 18's runs on ``device``, each under a RoundLog: the bench
-    path at n=512 with metrics, latency and provenance on (fast arm), the
-    same with a 4-round flight ring (generic arm) whose decoded Trace
-    must equal ``Cluster.record``'s last 4 of 6 rounds from the
-    converged state, config 8 at n=48 (both arms, 3 waves), the fanout
-    arm at n=64 (4 waves) and the healing arm at n=64."""
+    path at n=512 with metrics, latency and provenance on (fast arm), its
+    broadcast again from the boot state on a cluster with a 4-round
+    flight ring (generic arm), which must converge on the same round and
+    whose decoded Trace must equal ``Cluster.record``'s last 4 of 6
+    rounds from the broadcast, config 8 at n=48 (both arms, 3 waves),
+    the fanout arm at n=64 (4 waves) and the healing arm at n=64."""
     from partisan_tpu_torch import latency, provenance, trace
     from partisan_tpu_torch import scenarios as sc
+    from partisan_tpu_torch.cluster import Cluster
 
     out = {}
     with RoundLog() as rl:
@@ -1393,16 +1415,26 @@ def planes_setups(device: str) -> dict:
                                  widths=[N_PARITY // 2, N_PARITY], **PLANES)
     out["bench_planes"] = {"rounds": rl.states,
                            "converged_round": run["converged_round"]}
-    with RoundLog() as rl:
-        run = sc.bench_broadcast(N_PARITY, device=device,
-                                 widths=[N_PARITY // 2, N_PARITY],
-                                 flight_rounds=FLIGHT_K, **PLANES)
+    # the flight ring: a cluster with a 4-round ring stepped from the
+    # planes run's boot state (as phase 20 builds it), to coverage, then
     # record and steps from the broadcast round, so the ring holds live
     # traffic
-    cl, boot, start = run["cluster"], run["boot_state"], run["start_round"]
+    model, boot, start = run["model"], run["boot_state"], run["start_round"]
+    cfg = run["cluster"].cfg.replace(flight_rounds=FLIGHT_K)
+    cl = Cluster(cfg, model=model, device=device)
     st0 = boot._replace(
+        flight=latency.flight_init(cfg, cl.flight_shape(boot),
+                                   device=boot.rnd.device),
         provenance=provenance.mark_origin(boot.provenance, 0, 0, rnd=start),
-        model=run["model"].broadcast(boot.model, 0, 0, start))
+        model=model.broadcast(boot.model, 0, 0, start))
+    with RoundLog() as rl:
+        _, conv = sc._converge(
+            cl, st0, lambda s: model.coverage(s.model, s.faults.alive, 0),
+            300)
+    if conv != run["converged_round"]:
+        raise AssertionError(f"{device}: with a flight ring the broadcast "
+                             f"converged on round {conv}, without on "
+                             f"{run['converged_round']}")
     st_r, tr = cl.record(st0, 6)
     st_s = cl.steps(st0, 6)
     ring = latency.flight_trace(st_s.flight)
@@ -1415,7 +1447,7 @@ def planes_setups(device: str) -> dict:
                              f"{FLIGHT_K} rounds, or it holds no send")
     assert_identical(st_r, st_s, f"{device}: record vs steps with a ring")
     out["flight"] = {"rounds": rl.states + [state_leaves(st_s)],
-                     "converged_round": run["converged_round"],
+                     "converged_round": conv,
                      "ring_sends": sum(1 for _ in ring.events()),
                      "ring": ring.sent}
     for adaptive in (False, True):
@@ -1555,8 +1587,6 @@ def flight_full(card: str, run: dict) -> dict:
     bit and both final states are identical.  Then ms per round with the
     ring against the same state without it (one call each, K_PROG
     rounds), the kernel's device time per launch, and the peak memory."""
-    from torch.profiler import ProfilerActivity, profile
-
     from partisan_tpu_torch import kernels, latency, provenance, trace
     from partisan_tpu_torch import scenarios as sc
     from partisan_tpu_torch.cluster import Cluster
@@ -1597,17 +1627,10 @@ def flight_full(card: str, run: dict) -> dict:
     del tr, st_r
     plain = st_s._replace(flight=())
     kernels.reset_launches()
-    prof_ring = round_profile(lambda: fcl.steps(st_s, sc.K_PROG), sc.K_PROG)
+    prof_ring = round_profile(lambda: fcl.steps(st_s, sc.K_PROG), sc.K_PROG,
+                              kernel="interleave")
     prof_plain = round_profile(
         lambda: run["cluster"].steps(plain, sc.K_PROG), sc.K_PROG)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fcl.steps(st_s, sc.K_PROG)
-        torch.cuda.synchronize()
-    kev = [e for e in prof.key_averages() if "interleave" in e.key
-           and _self_device_us(e) > 0]
-    dev_us = sum(_self_device_us(e) for e in kev)
-    n_k = sum(e.count for e in kev)
     win_launches = kernels.launches["interleave"]
     return {"card": card, "n": N_MAIN, "flight_rounds": FLIGHT_K,
             "ring_shape": list(st_s.flight.sent.shape),
@@ -1619,8 +1642,9 @@ def flight_full(card: str, run: dict) -> dict:
             "leaves": n_leaves, "events_in_ring": sum(1 for _ in
                                                      ring.events()),
             "window_ring": prof_ring, "window_no_ring": prof_plain,
-            "kernel_device_ms_per_launch": dev_us / 1e3 / max(n_k, 1),
-            "kernel_launches_profiled": n_k,
+            "kernel_device_ms_per_launch":
+            prof_ring["interleave_device_ms_per_launch"],
+            "kernel_launches_profiled": prof_ring["interleave_launches"],
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
             "launches": {"interleave": steps_launches + rec_launches
                          + win_launches, "minimal": 0}}
@@ -1656,17 +1680,11 @@ def control_ab_full(card: str) -> dict:
                                  ProfilerActivity.CUDA]) as prof:
             st = orig_steps(cl, st, r)
             torch.cuda.synchronize()
-        ev = prof.key_averages()
+        c = window_counts(prof)
         a["profiled_rounds"] = r
-        a["launches_per_round"] = sum(
-            e.count for e in ev if _self_device_us(e) > 0 and str(
-                getattr(e, "device_type", "")).endswith("CUDA")) / r
-        a["host_reads_per_round"] = sum(
-            e.count for e in ev
-            if e.key == "aten::_local_scalar_dense") / r
-        a["device_ms_per_round"] = sum(
-            _self_device_us(e) for e in ev if str(getattr(
-                e, "device_type", "")).endswith("CUDA")) / 1e3 / r
+        a["launches_per_round"] = c["launches"] / r
+        a["host_reads_per_round"] = c["host_reads"] / r
+        a["device_ms_per_round"] = c["device_us"] / 1e3 / r
         a["_profiled_s"] = time.perf_counter() - t0
         return orig_steps(cl, st, k - r) if k > r else st
 

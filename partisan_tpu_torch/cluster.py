@@ -301,9 +301,10 @@ def round_body(cfg: Config, manager: Any, model: Any, comm: LocalComm,
             trace = TraceRound(rnd=state.rnd, sent=sent_wire,
                                dropped=fault_dropped)
         if fx:
-            fstate = _flight_write(cfg, state.flight, rnd_host, state.rnd,
-                                   sent, sent_wire, fault_dropped,
-                                   flight_owned)
+            fstate = latency_mod.record_flight(
+                cfg, state.flight, rnd=state.rnd, rnd_host=rnd_host,
+                sent=sent, sent_wire=sent_wire, dropped=fault_dropped,
+                owned=flight_owned)
         if lx:
             lat_fault = latency_mod.age_hist(sent, fault_dropped, state.rnd)
             lat_compact = latency_mod.zero_hist(dev)
@@ -421,26 +422,6 @@ def round_body(cfg: Config, manager: Any, model: Any, comm: LocalComm,
     if capture:
         return out, trace
     return out
-
-
-def _flight_write(cfg, fl, rnd_host: int, rnd, sent, sent_wire, dropped,
-                  owned: bool):
-    """Write one round into the flight ring's slot ``rnd % K``: the
-    interleave writes the wire stack straight into the slot.  A ring the
-    round does not own is copied first, so the caller's state keeps its
-    own ring."""
-    if not owned:
-        fl = latency_mod.FlightState(rnd=fl.rnd.clone(),
-                                     sent=fl.sent.clone(),
-                                     dropped=fl.dropped.clone())
-    slot = rnd_host % cfg.flight_rounds
-    if sent_wire is not None:
-        fl.sent[slot].copy_(sent_wire)
-    else:
-        plane_ops.interleave(sent, out=fl.sent[slot])
-    fl.dropped[slot].copy_(dropped)
-    fl.rnd[slot].copy_(rnd)
-    return fl
 
 
 def activate(state: ClusterState, width) -> ClusterState:

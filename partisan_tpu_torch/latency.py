@@ -190,14 +190,27 @@ def record_round(cfg, comm, ls: LatencyState, *, rnd, inbox_data, dead,
                         age_hwm=hwm)
 
 
-def record_flight(cfg, fl: FlightState, *, rnd, sent, dropped
-                  ) -> FlightState:
-    """Write one round's wire capture into ring slot ``rnd % K`` (a new
-    state; the round itself writes its owned ring in place)."""
-    slot = torch.remainder(rnd, cfg.flight_rounds)
-    return FlightState(rnd=metrics_mod.put(fl.rnd, slot, rnd),
-                       sent=metrics_mod.put(fl.sent, slot, sent),
-                       dropped=metrics_mod.put(fl.dropped, slot, dropped))
+def record_flight(cfg, fl: FlightState, *, rnd, rnd_host: int, sent,
+                  sent_wire, dropped, owned: bool) -> FlightState:
+    """Write one round's wire capture into ring slot ``rnd % K``.  The
+    interleave writes the wire stack (``sent``, word planes) straight
+    into the slot, unless the round already interleaved it for its trace
+    (``sent_wire``).  ``rnd_host`` is the round as a host int, read with
+    the round's route gate, so the slot costs no host read of its own.
+    A ring the caller does not ``own`` (one it did not copy earlier in
+    the same run) is copied first, so the state handed in keeps its
+    ring."""
+    if not owned:
+        fl = FlightState(rnd=fl.rnd.clone(), sent=fl.sent.clone(),
+                         dropped=fl.dropped.clone())
+    slot = rnd_host % cfg.flight_rounds
+    if sent_wire is not None:
+        fl.sent[slot].copy_(sent_wire)
+    else:
+        plane_ops.interleave(sent, out=fl.sent[slot])
+    fl.dropped[slot].copy_(dropped)
+    fl.rnd[slot].copy_(rnd)
+    return fl
 
 
 # ---------------------------------------------------------------------------

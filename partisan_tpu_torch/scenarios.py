@@ -1057,20 +1057,18 @@ def bench_config(n: int) -> Config:
 
 
 def bench_broadcast(n: int, device=None, widths=None, metrics=False,
-                    latency=False, provenance=False,
-                    flight_rounds=0) -> dict:
+                    latency=False, provenance=False) -> dict:
     """The bench main path at ``n`` nodes: init, the width-operand ladder
     (``widths``, default [8192, n]), one broadcast from node 0 slot 0,
     stepped to coverage 1.0 (raises if it is not reached).  ``metrics``,
-    ``latency``, ``provenance`` and ``flight_rounds`` turn bench.py's
-    plane flags on (with provenance, node 0 is marked as the broadcast's
-    origin first, as bench.py does).  Returns the cluster, model and
+    ``latency`` and ``provenance`` turn bench.py's plane flags on (with
+    provenance, node 0 is marked as the broadcast's origin first, as
+    bench.py does).  Returns the cluster, model and
     state, the broadcast and convergence rounds, and the wall seconds of
     each phase."""
     model = Plumtree()
     cfg = bench_config(n).replace(metrics=metrics, latency=latency,
-                                  provenance=provenance,
-                                  flight_rounds=flight_rounds)
+                                  provenance=provenance)
     t0 = time.perf_counter()
     cl = cluster_mod.Cluster(cfg, model=model, device=device)
     st = cl.init()
@@ -1119,6 +1117,8 @@ def bench_planes_report(cfg: Config, st) -> list[dict]:
                     "tree_depth_mean": tr["depth_mean"],
                     "tree_depth_max": tr["depth_max"],
                     "branching_mean": tr["branching_mean"],
+                    "branching_max": tr["branching_max"],
+                    "claimed": tr["claimed"],
                     "coverage_round": tr["cover_round"]})
     return out
 
