@@ -8,8 +8,9 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    11, 14-18, 22, 26, 29, 33, 35, 36, 39) runs in a second process
    (``chip_smoke.py --cpu-halves``), started first and pinned to the CPU
    with CPU_THREADS threads, which saves each result under
-   build/chip_smoke_cpu/ as it is done; phases 21, 23 and 36's card half
-   run on the card in a third process (``chip_smoke.py --card-worker``,
+   build/chip_smoke_cpu/ as it is done; phases 21, 23 and 36's card
+   half, and 41b and 41c, run on the card in a third process
+   (``chip_smoke.py --card-worker``,
    results under
    build/chip_smoke_card/), started after phase 6's kernel timings, beside
    phases 7-20 (their rounds are host-bound and the card idle most of the
@@ -200,9 +201,10 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    (scenarios.OPS): every scenario dict, both arms, its ops counts and
    verdict included, equal to the JAX package's (JAX_TRAFFIC_SLO), pass
    true; per run its wall and ms per round;
-24. config 7 at the reference's width (n=10,000, 600 rounds: three
+24. config 7 at the reference's width (n=10,000, 400 rounds: two
    periods of the storm every 200 rounds; cut from the default 2000 to
-   1000 to make room for phases 26-28, then to 600 for phases 30-33) on
+   1000 to make room for phases 26-28, to 600 for phases 30-33, then
+   to 400 for phase 41) on
    the card with the ops journal on: no
    breach, no retry, and the rounds, health, components, the ops counts
    and verdict, Stats, digest and every leaf (by hash) equal to the JAX
@@ -285,7 +287,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    the capture window's within 2%;
 32. X-BOT with the distance plane at n=10,000: bench's Config with
    X-BOT and the measured-RTT oracle, booted by the width ladder, then
-   200 rounds (20 X-BOT cycles), and the same with X-BOT off: the X-BOT
+   100 rounds (10 X-BOT cycles; cut from 200 for phase 41), and the same
+   with X-BOT off: the X-BOT
    run's final state and mean modeled link latency equal the JAX
    package's (JAX_XBOT), its latency below the off run's, one component;
    per arm the walls and a profiled K_PROG window;
@@ -368,8 +371,26 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    and 37 also split their profiled windows per round.* phase
    (perfwatch.phase_window: X-BOT on and off, the OTP storm, the W=64
    fleet round);
-41. the kernels line, then (main) the card line, and last the result
-   line {"ok": true, "device": {...}}.
+41. the sharded cluster (parallel/sharded.py) on SHARDS=4 shard threads
+   over the one card: (a, after phase 40, in this process) bench's round
+   at n=32,768 from phase 5's converged state, 20 rounds with the
+   all-gather exchange and 20 with the all-to-all exchange, each equal
+   leaf for leaf to the card's Cluster on the same state (the
+   all-to-all's quota must shed nothing), record(10) equal in state and
+   trace, its 40 interleave launches held against the plain version on
+   the same planes (a second record with the plain version in the
+   kernel's place), then ms, launches, host reads (device->host copies),
+   device ms and collective bytes per round of Cluster, a 1-shard mesh
+   and the 4-shard mesh; (b, in the card worker, after 41a) the health
+   plane at n=4,096 (tests/test_sharded_health.py's digest case scaled):
+   4 shards, 1 shard and Cluster give equal digests, rings and states;
+   (c, in the card worker, after 41b) ``python -m partisan_tpu_torch.bench --one
+   100000`` with PARTISAN_SHARDS=4 takes the sharded arm and its
+   converged round, counts, coverage and state equal JAX_BENCH, phase
+   31's oracle, and phase 31's converged round;
+
+the kernels line, then (main) the card line, and last the result line
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -472,8 +493,8 @@ JAX_CONTROL_AB = {
 
 # the JAX package's values on the CPU (jax 0.9.0), printed by
 # tools/jax_reference_values.py: scenarios.traffic_slo(1.0) with every
-# wall_s stripped (phase 23); scenarios.config7_soak at n=10,000 for 600
-# rounds (``config7 --rounds 600 --ops``; phase 24) and config9_elastic at
+# wall_s stripped (phase 23); scenarios.config7_soak at n=10,000 for 400
+# rounds (``config7 --rounds 400 --ops``; phase 24) and config9_elastic at
 # n=256 and its default n=8192 (``config9 --n 256``, ``config9``; phases
 # 26 and 27), each without its wall-clock keys and chunk count, with the
 # final state's round, Stats, health digest and leaf hashes
@@ -598,7 +619,7 @@ false, "age_max": {"broadcast": 0, "bulk": 32, "default": 2,
 # 32, printed by tools/jax_reference_values.py: ``bench --n 32768`` and
 # ``bench --n 100000`` (bench.run(n) with every plane off: the converged
 # round, counts and final state's leaf hashes) and ``xbot --n 10000
-# --rounds 200`` (xbot_cfg booted by the width ladder, then 200 rounds).
+# --rounds 100`` (xbot_cfg booted by the width ladder, then 100 rounds).
 JAX_BENCH_MAIN = json.loads("""
 {"converged_round": 100, "convergence_rounds": 20, "dropped": 3876,
 "emitted": 1163000, "leaf_hashes": ["40e736c02a102a05",
@@ -643,24 +664,24 @@ JAX_BENCH = json.loads("""
 
 JAX_XBOT = json.loads("""
 {"boot_mean_latency": 1.6351231088697715, "leaf_hashes":
-["a68cf346a1167f10", "684ad25fdc2bbb80", "df3f619804a92fdb",
-"e7e2dcff542de953", "185f84f7259cd491", "bd03669457b897bb",
-"008ab998a713c2b3", "b9ce164d30e4101b", "ac2878215ad33205",
+["eed72f47b9a4ba7d", "684ad25fdc2bbb80", "df3f619804a92fdb",
+"e7e2dcff542de953", "5634e4c31b8bff3d", "4953af19a5880714",
+"5c8abfebbd783bf9", "b9ce164d30e4101b", "ac2878215ad33205",
 "3d00ed86b663cd1b", "3d00ed86b663cd1b", "b9ce164d30e4101b",
-"22ed34e86c72170b", "3d00ed86b663cd1b", "3d00ed86b663cd1b",
+"4129549f25a0c42f", "3d00ed86b663cd1b", "3d00ed86b663cd1b",
 "3d00ed86b663cd1b", "3d00ed86b663cd1b", "3d00ed86b663cd1b",
-"3d00ed86b663cd1b", "3d00ed86b663cd1b", "ef577931fe7a4e28",
-"e7e2dcff542de953", "6303c449ba2768b3", "5623957a5f316d7c",
+"3d00ed86b663cd1b", "3d00ed86b663cd1b", "abc00e952dde867d",
+"e7e2dcff542de953", "8db73fe0aabaa84c", "5cecb256599248db",
 "e2ce7238a89a97ff", "95b532cc4381affd", "95b532cc4381affd",
-"e7e2dcff542de953", "684ad25fdc2bbb80", "d521b464589df952",
-"fad7f01cfa65e6a6", "df51f8097d140d19", "1542d9f46200be22",
-"32a03dd0241c0b08", "73752e1f8b2cb225", "920338b7f980b35f",
+"e7e2dcff542de953", "684ad25fdc2bbb80", "9363b41212643713",
+"17b7b043899b974f", "059101525f00237d", "1e822373abababc7",
+"5fc0abda6ed5dade", "8a1fe00a387bf36e", "f9d2997e2db57bfc",
 "ac2878215ad33205", "ac2878215ad33205", "baf1862a3e57a773",
 "baf1862a3e57a773", "f8c784aa6b57396e", "49458293c99a760a",
-"6303c449ba2768b3", "ac2878215ad33205", "e7e2dcff542de953",
-"b0a49c74a43309fe", "80a1de81b4f84478", "abffc59a3479ef39",
-"85884be0c0b39bef"], "mean_latency": 0.6873659524143598, "n": 10000,
-"rnd": 270, "rounds": 200, "state_sha": "58d589e7b48fce84"}
+"8db73fe0aabaa84c", "ac2878215ad33205", "e7e2dcff542de953",
+"0f3b303c499d5bcf", "e8efd4f793807555", "abffc59a3479ef39",
+"85884be0c0b39bef"], "mean_latency": 0.9600008183975776, "n": 10000,
+"rnd": 170, "rounds": 100, "state_sha": "325ff1da5b529867"}
 """)
 
 # ``filibuster_paxos --max-executions 30`` (phase 16)
@@ -670,30 +691,30 @@ JAX_FILIBUSTER_PAXOS = {
 
 JAX_CONFIG7 = json.loads("""
 {"breaches": 0, "components": 1, "digest": 275, "healthy": false,
-"leaf_hashes": ["fff7bed0e636d232", "684ad25fdc2bbb80",
-"df3f619804a92fdb", "e7e2dcff542de953", "ed72669d8e1e12c9",
-"8721e74fb99822c5", "ba1b3084a4ad9499", "ac2878215ad33205",
-"97bf8fc6482162a7", "ac8ced7a23a8f82a", "ac8ced7a23a8f82a",
-"ac2878215ad33205", "2c869bccbae44bf7", "d6c2463949382ef5",
-"8e479cb2d6dd196e", "615f96a488e6f298", "01ce0e1750715aaa",
-"f73cd88c62d169c6", "4c3552d7e0a36c46", "e3c2bce749a86afc",
-"a5868a768e851d30", "e7e2dcff542de953", "c17df67fd1ac808e",
-"0a8073bd1f9323d4", "e2ce7238a89a97ff", "95b532cc4381affd",
+"leaf_hashes": ["518e535b44efdc5d", "684ad25fdc2bbb80",
+"df3f619804a92fdb", "e7e2dcff542de953", "a8e0e114083dc4ee",
+"cacb4251caa08ddb", "73f9ed3cb9dcdcbc", "ac2878215ad33205",
+"4cb24a42e997499e", "ac8ced7a23a8f82a", "ac8ced7a23a8f82a",
+"ac2878215ad33205", "cad464199b81a6d8", "7112bbac1b339c31",
+"49734bf790ddb0f9", "76a3ae4b4f3fb18c", "39e1399cf161fe2e",
+"a6248d57ced5a185", "a0be91e363d25d1a", "0972c54ebbc02bb0",
+"a32de7c270a19472", "e7e2dcff542de953", "6cc570e4d919c696",
+"f7a2381d418241a7", "e2ce7238a89a97ff", "95b532cc4381affd",
 "95b532cc4381affd", "e7e2dcff542de953", "684ad25fdc2bbb80",
-"cc1c8ea810e978c0", "69353eaf244ff09b", "02fadde899612bcd",
+"d3bc46f98f63d576", "fdce58b42dd70f0c", "02fadde899612bcd",
 "02fadde899612bcd", "81beb57ba94e8afb", "81beb57ba94e8afb",
-"3d00ed86b663cd1b", "47d23dadd0f8a03d", "c17df67fd1ac808e",
-"02fadde899612bcd", "e7e2dcff542de953", "fb92bd76fc39e88c",
-"2a837b8ce7b9a415", "5d064aa96f91383a", "76ef9a3869982fa8",
-"ae12dbdb82cc0b23", "d6a7525e8fdc24fe", "68f5493e32f79661",
-"7676683e81d7962e", "2ee3e5808ab7f1f1", "eaef6bf14388de46",
-"816d26d103e14073", "d2243bab711e4eb4", "735ccba8c54844b2",
-"9c8c7ad7596ce08f", "8784f9dbb5a77928", "2b13698ef3c0d844",
+"3d00ed86b663cd1b", "47d23dadd0f8a03d", "6cc570e4d919c696",
+"02fadde899612bcd", "e7e2dcff542de953", "0fc00330e368c08a",
+"41bbb76f458fbfe0", "b2c8cc22b1566e48", "3fcc74c2176f6048",
+"d5c04a8659567599", "b46872df1e695c8a", "1e06ee90f20c51c6",
+"61c5f3282c09ee87", "03b57b5262fc4c2e", "d9990a03e7e286fb",
+"4f4bb99fda7a31f5", "3b26ba2f133bfa5c", "75e00fe1c5eda23d",
+"e6fece7bd98f5b61", "c60449ee74850741", "2b13698ef3c0d844",
 "684ad25fdc2bbb80", "684ad25fdc2bbb80"], "n": 10000, "ops": {"closed":
-9, "ok": true, "open": 0, "orphans": 0, "spans": 10, "undetected": 0,
-"unobservable": 1}, "retries": 0, "rnd": 700, "rounds": 600,
-"state_sha": "2283f72403532591", "stats": {"delivered": 1394221,
-"dropped": 103937, "emitted": 1498158}, "storm_period": 200}
+6, "ok": true, "open": 0, "orphans": 0, "spans": 7, "undetected": 0,
+"unobservable": 1}, "retries": 0, "rnd": 500, "rounds": 400,
+"state_sha": "67d0cdf774cf4142", "stats": {"delivered": 1057656,
+"dropped": 69148, "emitted": 1126804}, "storm_period": 200}
 """)
 
 JAX_CONFIG9_SMALL = json.loads("""
@@ -2955,10 +2976,11 @@ def traffic_slo_full(card: str) -> dict:
 
 def config7_full(card: str) -> dict:
     """Phase 24: config 7 at the reference's width on the card (n=10,000,
-    600 rounds: three storm periods, the storm every 200) with the ops
+    400 rounds: two storm periods, the storm every 200) with the ops
     journal on.  No breach, no retry; the rounds, health, components, the
-    ops journal's counts and verdict, final Stats, digest and every leaf
-    (by hash) equal the JAX package's (``JAX_CONFIG7``).  Its chunks,
+    ops journal's counts and verdict (ok: every span closed), final
+    Stats, digest and every leaf (by hash) equal the JAX package's
+    (``JAX_CONFIG7``).  Its chunks,
     programs, rounds/s, the wall per round of storm chunks (rounds 60-140
     of a period: a crash batch, then the partition) and of calm ones
     (rounds 180-200, healed and revived), a profiled storm round (the
@@ -3750,6 +3772,10 @@ class Sidecar:
             time.sleep(0.05)
         return torch.load(path, weights_only=False)
 
+    def go(self, key: str) -> None:
+        """Let the process start ``key`` (see :func:`wait_go`)."""
+        open(os.path.join(self.out_dir, f"{key}.go"), "w").close()
+
     def stop(self, check: bool) -> None:
         if self.proc is None:
             return
@@ -3765,6 +3791,12 @@ class Sidecar:
 
 CPU = Sidecar("--cpu-halves", CPU_DIR)
 CARD = Sidecar("--card-worker", CARD_DIR)
+
+
+def wait_go(out_dir: str, key: str) -> None:
+    """Wait until the main process lets a sidecar start ``key``."""
+    while not os.path.exists(os.path.join(out_dir, f"{key}.go")):
+        time.sleep(0.2)
 
 
 def saver(out_dir: str):
@@ -3824,7 +3856,9 @@ def cpu_halves() -> int:
 def card_worker() -> int:
     """The card worker (``chip_smoke.py --card-worker``, started after
     phase 6): phases 21 and 23, the controllers' A/B and the traffic SLO
-    suite, then phase 36's bridge runs, on the card beside the main
+    suite, then phase 36's bridge runs, then (once the main process
+    lets it, after phase 41a) phase 41b's health plane and 41c's
+    sharded bench entry, on the card beside the main
     process's phases 7-20 (each round is host-bound and the card idle
     most of the time); each phase's dict and kernel launches saved as it
     is done.  It starts no torch.profiler
@@ -3835,7 +3869,12 @@ def card_worker() -> int:
     put = saver(CARD_DIR)
     for key, fn in (("control_ab", control_ab_full),
                     ("traffic_slo", traffic_slo_full),
-                    ("bridge", lambda card: bridge_card())):
+                    ("bridge", lambda card: bridge_card()),
+                    ("sharded_health", sharded_health),
+                    ("sharded_entry", lambda card: sharded_entry())):
+        if key == "sharded_health":
+            # after the main process's phase 41a measurements
+            wait_go(CARD_DIR, "sharded")
         kernels.reset_launches()
         t0 = time.perf_counter()
         out = fn(card)
@@ -4901,6 +4940,252 @@ def census_full(card: str, cl, st) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
+# ---------------------------------------------------------------------------
+# Phase 41: the sharded cluster
+# ---------------------------------------------------------------------------
+
+SHARDS = 4                  # phase 41's shard count (one card, 4 threads)
+SHARD_ROUNDS = 20           # rounds of each exchange's parity run
+SHARD_RECORD = 10           # record() rounds (SHARDS launches each)
+SHARD_HEALTH_N = 4096       # phase 41b's overlay
+SHARD_PROFILE_ROUNDS = 10   # each three-way measurement's window
+
+
+def shard_measure(label: str, cl, st, mesh=None) -> dict:
+    """Per round of ``cl.steps(st, SHARD_PROFILE_ROUNDS)``: the wall, and
+    from a torch.profiler window the card's launches, device ms and
+    device->host copies (each a host read: the shard threads' own reads
+    are out of the profiler's host view, so a sharded run's reads are
+    counted as the copies they cause), and the bytes the shards received
+    from one another at collectives (``Mesh.stats``)."""
+    k = SHARD_PROFILE_ROUNDS
+    b0 = dict(mesh.stats) if mesh is not None else None
+    w = round_profile(lambda: cl.steps(st, k), k)
+    out = {"cluster": label, "ms_per_round": w["wall_ms_per_round"],
+           "launches_per_round": w["launches_per_round"],
+           "device_ms_per_round": w["device_ms_per_round"],
+           "device_idle_share": w["device_idle_share"],
+           "host_reads_per_round": w["copies_dtoh_per_round"],
+           "records_lost": w["records_lost"],
+           "collective_bytes_per_round": 0.0,
+           "collectives_per_round": 0.0}
+    if mesh is not None:
+        # round_profile runs the k rounds twice: the bare wall, the window
+        out["collective_bytes_per_round"] = \
+            (mesh.stats["bytes"] - b0["bytes"]) / (2 * k)
+        out["collectives_per_round"] = \
+            (mesh.stats["collectives"] - b0["collectives"]) / (2 * k)
+    if out["launches_per_round"] <= 0 or out["device_ms_per_round"] <= 0:
+        raise AssertionError(f"{label}: the window holds no device work")
+    return out
+
+
+def sharded_main(card: str, cl, st) -> dict:
+    """Phase 41a: bench's round at n=32768 on a SHARDS-shard mesh over
+    one card, from phase 5's converged state, against the card's
+    ``Cluster`` on the same state: SHARD_ROUNDS rounds with the
+    all-gather exchange (every leaf equal), the same with the all-to-all
+    exchange (every leaf equal, its quota shed nothing), and
+    ``record(SHARD_RECORD)`` (state and trace equal; its SHARDS *
+    SHARD_RECORD interleave launches held against the plain version on
+    the same planes by recording again with the plain version in the
+    kernel's place).  Then ms, launches, host reads, device ms and
+    collective bytes per round for the Cluster, a 1-shard mesh and the
+    SHARDS-shard mesh."""
+    from partisan_tpu_torch import kernels
+    from partisan_tpu_torch.ops import plane as plane_ops
+    from partisan_tpu_torch.parallel import ShardedCluster, make_mesh
+
+    t0 = time.perf_counter()
+
+    def sharded(cfg, S):
+        return ShardedCluster(cfg, make_mesh(S, device="cuda:0"),
+                              manager=cl.manager, model=cl.model)
+
+    ref = cl.steps(st, SHARD_ROUNDS)
+    sc4 = sharded(cl.cfg, SHARDS)
+    t1 = time.perf_counter()
+    got = sc4.steps(st, SHARD_ROUNDS)
+    torch.cuda.synchronize()
+    ag_s = time.perf_counter() - t1
+    leaves = assert_identical(ref, got, f"{SHARDS} shards all_gather vs "
+                              f"Cluster, {SHARD_ROUNDS} rounds")
+    del got
+    a2a = sharded(cl.cfg.replace(sharded_exchange="all_to_all"), SHARDS)
+    t1 = time.perf_counter()
+    got = a2a.steps(st, SHARD_ROUNDS)
+    torch.cuda.synchronize()
+    a2a_s = time.perf_counter() - t1
+    shed = a2a.a2a_shed()
+    if shed:
+        raise AssertionError(f"all_to_all shed {shed} records at "
+                             f"n={N_MAIN} on {SHARDS} shards: the oracle is "
+                             "then the JAX package's sharded run")
+    assert_identical(ref, got, f"{SHARDS} shards all_to_all vs Cluster")
+    del got, ref, a2a
+
+    # record: the kernel's launches, counted from 0
+    kernels.reset_launches()
+    st_s, tr_s = sc4.record(st, SHARD_RECORD)
+    torch.cuda.synchronize()
+    rec_launches = dict(kernels.launches)
+    if rec_launches["interleave"] != SHARDS * SHARD_RECORD:
+        raise AssertionError(f"sharded record({SHARD_RECORD}) launched "
+                             f"{rec_launches}, want {SHARDS * SHARD_RECORD}"
+                             " interleave")
+    st_l, tr_l = cl.record(st, SHARD_RECORD)
+    assert_identical(st_l, st_s, "sharded record state vs Cluster")
+    assert_identical(tr_l, tr_s, "sharded record trace vs Cluster")
+    del st_l, tr_l
+    # the plain twin: the same record with the plain version in place
+    kernel_interleave = plane_ops.interleave
+    plane_ops.interleave = lambda p, out=None: \
+        plane_ops.interleave_plain(list(p), out=out)
+    try:
+        base = dict(kernels.launches)
+        _, tr_p = sc4.record(st, SHARD_RECORD)
+        torch.cuda.synchronize()
+        if dict(kernels.launches) != base:
+            raise AssertionError("the plain twin launched a kernel")
+    finally:
+        plane_ops.interleave = kernel_interleave
+    err = int((tr_p.sent.to(torch.int64) - tr_s.sent.to(torch.int64))
+              .abs().max())
+    if err != 0 or not torch.equal(tr_p.dropped, tr_s.dropped):
+        raise AssertionError(f"sharded record: kernel vs plain max abs "
+                             f"error {err}")
+    trace_shape = list(tr_s.sent.shape)
+    del st_s, tr_s, tr_p
+
+    sc1 = sharded(cl.cfg, 1)
+    runs = [shard_measure("Cluster", cl, st),
+            shard_measure("1 shard", sc1, st, sc1.mesh),
+            shard_measure(f"{SHARDS} shards", sc4, st, sc4.mesh)]
+    return {"card": card, "n": N_MAIN, "shards": SHARDS,
+            "rounds": SHARD_ROUNDS, "leaves": leaves,
+            "all_gather_s": ag_s, "all_to_all_s": a2a_s,
+            "all_to_all_shed": shed,
+            "record": {"rounds": SHARD_RECORD, "trace_shape": trace_shape,
+                       "launches": rec_launches, "max_abs_err": err},
+            "runs": runs, "seconds": time.perf_counter() - t0}
+
+
+def sharded_health(card: str) -> dict:
+    """Phase 41b: tests/test_sharded_health.py's digest case (HyParView,
+    ``health=5``, ``health_ring=32``, groups partitions) scaled to
+    n=SHARD_HEALTH_N: four join waves of n/4 nodes via node 0 (10 rounds
+    each), three crashes and the first 3/8 of the nodes partitioned off
+    for 10 rounds, healed, 20 more rounds — on SHARDS shards, on 1 shard
+    and on the card's ``Cluster``: the digests, the health rings and
+    every other leaf equal."""
+    from partisan_tpu_torch import faults, health
+    from partisan_tpu_torch.cluster import Cluster
+    from partisan_tpu_torch.config import Config
+    from partisan_tpu_torch.parallel import ShardedCluster, make_mesh
+
+    n = SHARD_HEALTH_N
+    cfg = Config(n_nodes=n, seed=13, peer_service_manager="hyparview",
+                 msg_words=16, health=5, health_ring=32,
+                 partition_mode="groups")
+
+    def drive(cl):
+        st = cl.init()
+        for base in range(1, n, n // 4):
+            nodes = list(range(base, min(base + n // 4, n)))
+            st = st._replace(manager=cl.manager.join_many(
+                cfg, st.manager, nodes, [0] * len(nodes)))
+            st = cl.steps(st, 10)
+        f = faults.crash_many(st.faults, [7, n // 3, n // 2 + 40])
+        part = f.partition.clone()
+        part[: 3 * n // 8] = 1
+        st = cl.steps(st._replace(faults=f._replace(partition=part)), 10)
+        st = st._replace(faults=st.faults._replace(
+            partition=torch.zeros_like(part)))
+        st = cl.steps(st, 10)
+        return cl.steps(st, 10)
+
+    out, walls = {}, {}
+    for label, make in (
+            ("Cluster", lambda: Cluster(cfg)),
+            ("1 shard", lambda: ShardedCluster(cfg, make_mesh(1, "cuda:0"))),
+            (f"{SHARDS} shards",
+             lambda: ShardedCluster(cfg, make_mesh(SHARDS, "cuda:0")))):
+        t0 = time.perf_counter()
+        out[label] = drive(make())
+        torch.cuda.synchronize()
+        walls[label] = time.perf_counter() - t0
+    digests = {k: health.digest(v) for k, v in out.items()}
+    if len(set(digests.values())) != 1:
+        raise AssertionError(f"health digests differ: {digests}")
+    ref = out["Cluster"]
+    leaves = 0
+    for label, st in out.items():
+        leaves = assert_identical(ref, st, f"health n={n}: {label}")
+    snap = health.snapshot(ref.health)
+    if int(snap["components"].max()) <= 1 or int(snap["downs"].sum()) != 3:
+        raise AssertionError(f"health n={n}: the ring shows no split or "
+                             f"not the 3 downs: {snap['components']}, "
+                             f"{snap['downs']}")
+    return {"card": card, "n": n, "shards": SHARDS, "digest": digests,
+            "decoded": health.decode_digest(digests["Cluster"]),
+            "components_max": int(snap["components"].max()),
+            "downs": int(snap["downs"].sum()), "leaves": leaves,
+            "wall_s": walls}
+
+
+def sharded_entry() -> dict:
+    """Phase 41c (in the card worker): ``python -m
+    partisan_tpu_torch.bench --one 100000 --extras PATH`` with
+    ``PARTISAN_SHARDS=SHARDS``: it must take the sharded arm (its
+    ``cluster`` line: ``ShardedCluster``, SHARDS shards), and its
+    converged round, counts, coverage and final state (every leaf by
+    hash) equal the JAX package's (``JAX_BENCH``, phase 31's oracle)."""
+    want = JAX_BENCH
+    extras = "build/bench_entry_sharded_extras.json"
+    if os.path.exists(extras):
+        os.remove(extras)
+    cmd = [sys.executable, "-m", "partisan_tpu_torch.bench", "--one",
+           str(want["n"]), "--extras", extras]
+    env = dict(os.environ, PARTISAN_SHARDS=str(SHARDS))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900,
+                          env=env)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"sharded bench --one {want['n']}: exit "
+                             f"{proc.returncode}\n{proc.stderr[-3000:]}")
+    arm = [json.loads(line) for line in proc.stderr.splitlines()
+           if line.startswith('{"kind": "cluster"')]
+    if arm != [{"kind": "cluster", "n": want["n"],
+                "type": "ShardedCluster", "shards": SHARDS}]:
+        raise AssertionError(f"sharded bench --one {want['n']}: arm {arm}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    if set(res) != BENCH_ONE_KEYS:
+        raise AssertionError(f"sharded bench --one printed {sorted(res)}")
+    with open(extras) as f:
+        ex = json.load(f)
+    got = {k: res[k] for k in ("n", "converged_round", "convergence_rounds",
+                               "dropped", "emitted")}
+    got.update(rnd=res["converged_round"], state_sha=ex["state_sha"])
+    if ex["coverage"] != 1.0:
+        raise AssertionError(f"sharded bench: coverage {ex['coverage']}")
+    for key, w in want.items():
+        if key != "leaf_hashes" and got.get(key) != w:
+            bad = [i for i, (h, x) in enumerate(zip(ex["leaf_hashes"],
+                                                    want["leaf_hashes"]))
+                   if h != x]
+            raise AssertionError(f"sharded bench n={want['n']} {key}: card "
+                                 f"{got.get(key)} != JAX {w} (leaves {bad} "
+                                 "differ)")
+    return {"command": "PARTISAN_SHARDS=%d " % SHARDS + " ".join(cmd[1:]),
+            "arm": arm[0], **got, "coverage": ex["coverage"],
+            "rounds_per_sec": res["rounds_per_sec"],
+            "convergence_wall_s": res["convergence_wall_s"],
+            "bootstrap_s": res["phases"]["bootstrap"],
+            "phases": res["phases"], "process_wall_s": wall,
+            "peak_mem_gib": ex["peak_mem_gib"], "launches": ex["launches"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -4927,7 +5212,7 @@ def main() -> int:
 
 
 def run_phases(card: str, kind: str) -> None:
-    """Phases 1-40 and the kernels line (main prints the last two
+    """Phases 1-41 and the kernels line (main prints the last two
     lines)."""
     from partisan_tpu_torch import bench as tbench
     from partisan_tpu_torch import kernels, probe
@@ -5196,7 +5481,16 @@ def run_phases(card: str, kind: str) -> None:
     # lift on phase 5's state, in this process (it profiles and captures)
     cf = census_full(card, cl5, st5)
     log({"phase": "census", **cf})
+
+    # 41a. the sharded cluster on phase 5's state, counts reset just
+    # before the sharded runs and read just after; 41b and 41c then run
+    # in the card worker
+    kernels.reset_launches()
+    sh = sharded_main(card, cl5, st5)
     del cl5, st5
+    sh_counts = dict(kernels.launches)
+    log({"phase": "sharded", **sh, "launches": sh_counts})
+    CARD.go("sharded")
 
     # 20. the flight ring at full width, counts reset inside
     t0 = time.perf_counter()
@@ -5301,6 +5595,19 @@ def run_phases(card: str, kind: str) -> None:
     be = bench_entry_full(card)
     log({"phase": "bench_entry", **be})
 
+    # 41b. the health plane's segment-local kernels at n=4096 (card worker)
+    shh, shh_counts, shh_s = CARD.get("sharded_health")
+    log({"phase": "sharded_health", **shh, "launches": shh_counts,
+         "seconds": shh_s})
+
+    # 41c. the sharded-by-default bench entry at n=100,000 (card worker)
+    se, _, se_s = CARD.get("sharded_entry")
+    if se["converged_round"] != be["converged_round"]:
+        raise AssertionError(f"sharded entry converged at "
+                             f"{se['converged_round']}, phase 31 at "
+                             f"{be['converged_round']}")
+    log({"phase": "sharded_entry", "card": card, **se, "seconds": se_s})
+
     new_paths = {"causal_parity": lp_counts, "config5": c5_counts,
                  "config6": c6_counts, "app_parity": ap_counts,
                  "harness": hp_counts, "filibuster_paxos": fp["launches"],
@@ -5317,14 +5624,16 @@ def run_phases(card: str, kind: str) -> None:
                  "otp_10k": of["launches"], "otp_parity": op["launches"],
                  "bridge": br_counts, "fleet_sweep": ff["launches"],
                  "fleet_search": fs["launches"],
-                 "fleet_parity": fp39["launches"]}
+                 "fleet_parity": fp39["launches"],
+                 "sharded": sh_counts, "sharded_health": shh_counts,
+                 "sharded_entry_100k": se["launches"]}
     ingress_check = ep["ingress_record"]["kernel_check"]
 
     log({"phase": "profiler", "windows_measured_again":
          perfwatch.incomplete_windows,
          "records_lost_in_kept_windows": perfwatch.records_lost})
 
-    # 41. the kernels line (main prints the card line and the result)
+    # the kernels line (main prints the card line and the result)
     timing_keys = ("ms", "device_ms", "host_ms", "plain_ms", "library_ms",
                    "bound_ms")
     log({"kernels": [{

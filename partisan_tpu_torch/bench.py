@@ -47,7 +47,13 @@ library.
 The device defaults to the card; ``--device cpu`` runs on the CPU (the
 tests hold this entry against bench.py there).  ``--fleet W n`` prints
 the fleet sweep's distribution card (``fleet``); ``--dry-1m`` is not
-ported (it censuses the sharded round).
+ported (it needs the census of a sharded round).
+
+The cluster comes from ``scenarios.make_cluster_auto``, as bench.py's
+does: at ``n >= SHARDED_N_MIN`` with a shard count above 1 (say
+``PARTISAN_SHARDS=4``, four shards on one card) the run is sharded; a
+verbose run prints the cluster's type and shard count to stderr as a
+``{"kind": "cluster", ...}`` line.
 """
 
 from __future__ import annotations
@@ -68,6 +74,7 @@ import torch
 from partisan_tpu_torch import device as device_mod
 from partisan_tpu_torch import kernels
 from partisan_tpu_torch import scenarios as sc
+from partisan_tpu_torch.cluster import Cluster
 from partisan_tpu_torch.models.plumtree import Plumtree
 
 TIME_BUDGET_S = 560.0          # hard self-imposed wall budget
@@ -185,6 +192,11 @@ def run(n: int, verbose: bool = False, metrics: bool = False,
     cfg = make_cfg(n, metrics, latency, health, provenance, superstep)
     model = Plumtree()
     cl = sc.make_cluster_auto(cfg, model=model, device=dev)
+    if verbose:
+        print(json.dumps({"kind": "cluster", "n": n,
+                          "type": type(cl).__name__,
+                          "shards": getattr(cl, "n_shards", 1)}),
+              file=sys.stderr, flush=True)
     t0 = time.perf_counter()
     st = cl.init()
     sc._sync(st)
@@ -309,9 +321,13 @@ def one_extras(res: dict) -> dict:
            "launches": dict(kernels.launches), **state_hashes(st)}
     if st.rnd.is_cuda:
         out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
-        out["window"] = perfwatch.round_profile(
-            lambda: cl.steps(st, sc.K_PROG), sc.K_PROG)
-        out["phase_table"] = phase_table(cl, st, sc.K_PROG)
+        if isinstance(cl, Cluster):
+            # the profiled window and the phase table census one
+            # device's round; a sharded cluster's shard threads are out
+            # of the profiler's host view, so it reports neither
+            out["window"] = perfwatch.round_profile(
+                lambda: cl.steps(st, sc.K_PROG), sc.K_PROG)
+            out["phase_table"] = phase_table(cl, st, sc.K_PROG)
     return out
 
 
@@ -502,7 +518,6 @@ def _cost_card(n: int, device=None) -> dict:
     (``lint/cost.py``), per phase, with the superstep guard's verdict
     against ``cost_budgets.SUPERSTEP_INTERM_BUDGET_MIB``."""
     try:
-        from partisan_tpu_torch.cluster import Cluster
         from partisan_tpu_torch.lint import cost, cost_budgets
 
         cl = Cluster(make_cfg(n), model=Plumtree(), device=device)
@@ -670,7 +685,7 @@ def _parse(argv):
                     "(default 8) of n nodes (default 256); exit 1 unless "
                     "every member converged")
     ap.add_argument("--dry-1m", action="store_true",
-                    help="not ported (ROADMAP §A, parallel/sharded.py)")
+                    help="not ported (the sharded census, ROADMAP §A)")
     return ap.parse_known_args(argv)[0]
 
 
@@ -678,8 +693,9 @@ if __name__ == "__main__":
     args = _parse(sys.argv[1:])
     if args.dry_1m:
         raise NotImplementedError(
-            "--dry-1m is not ported: it censuses the sharded round "
-            "(ROADMAP §A, parallel/sharded.py and the tooling analogues)")
+            "--dry-1m is not ported: it needs the census of a sharded "
+            "round (lint/cost.device_memory_census over ShardedCluster, "
+            "ROADMAP §A)")
     if args.fleet is not None:
         sys.exit(fleet(args.fleet, device=args.device))
     if args.build_dir is not None:

@@ -99,7 +99,7 @@ def throttle(cfg, comm, ob: OutboxState, emitted: plane_ops.Planes, *,
         # backpressure sheds join the outbox cut (CAUSE_OUTBOX)
         cut = cut | stale
     ob_out = OutboxState(data=plane_ops.take_rows(both, pos, fill=True),
-                         shed=ob.shed + cut.sum().to(torch.int32))
+                         shed=ob.shed + comm.allsum(cut.sum().to(torch.int32)))
     if birth_rnd is None:
         return ob_out, out
     return ob_out, out, latency_mod.age_hist(both, cut, birth_rnd)

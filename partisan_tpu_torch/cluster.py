@@ -117,7 +117,10 @@ def round_body(cfg: Config, manager: Any, model: Any, comm: LocalComm,
                state: ClusterState, interpose: Any = None,
                capture: bool = False, sent_out=None,
                flight_owned: bool = False):
-    """ONE round; ``capture`` also returns the round's ``TraceRound``.
+    """ONE round, on one device (``LocalComm``) or on one shard of a
+    sharded cluster (``parallel/sharded.ShardComm``: the node-axis leaves
+    are this shard's rows, the rest replicated); ``capture`` also
+    returns the round's ``TraceRound``.
     ``sent_out(shape)``, when given, returns the int32 tensor the trace's
     ``sent`` is written into.  ``flight_owned`` says the state's flight
     ring belongs to this caller's run (an earlier round of the same
@@ -157,11 +160,16 @@ def round_body(cfg: Config, manager: Any, model: Any, comm: LocalComm,
                 seed=seed))
     gids = comm.local_ids()
     keys = rng.node_keys(seed, state.rnd, gids)
-    alive_local = state.faults.alive
+    # the fault state is replicated: a shard reads its own rows of it
+    alive_local = comm.local(state.faults.alive)
     faults_wire = state.faults
     if cfg.width_operand:
-        alive_local = state.faults.alive & (gids < n_act)
-        faults_wire = state.faults._replace(alive=alive_local)
+        # rows at or past the active width read dead, on the wire too
+        ids_g = gids if comm.n_local == n else torch.arange(
+            n, dtype=torch.int32, device=gids.device)
+        alive_g = state.faults.alive & (ids_g < n_act)
+        faults_wire = state.faults._replace(alive=alive_g)
+        alive_local = comm.local(alive_g)
     ctx = RoundCtx(rnd=state.rnd, alive=alive_local, keys=keys,
                    inbox=state.inbox, faults=state.faults, n_active=n_act,
                    control=state.control, seed=seed)
@@ -236,6 +244,8 @@ def round_body(cfg: Config, manager: Any, model: Any, comm: LocalComm,
         # histograms are zeros).
         kind_raw = emitted[W_KIND]
         n_raw = _count(kind_raw != 0)
+        # the route holds collectives: the gate reads the whole cluster
+        any_emit = comm.allsum(n_raw) > 0
 
         def counts():
             # the plane counts and histograms of a round with no sends
@@ -251,7 +261,8 @@ def round_body(cfg: Config, manager: Any, model: Any, comm: LocalComm,
 
         def quiet():
             return {"inbox": exchange.empty_inbox(
-                n, cfg.inbox_cap, cfg.wire_layout, device=dev), **counts()}
+                comm.n_local, cfg.inbox_cap, cfg.wire_layout, device=dev),
+                **counts()}
 
         def wire():
             with scope.phase("round.wire_fast"):
@@ -263,7 +274,8 @@ def round_body(cfg: Config, manager: Any, model: Any, comm: LocalComm,
                 if cfg.emit_compact else emitted
             kind_w = emc[W_KIND]
             dst_w = emc[W_DST]
-            backed = state.inbox.drops > 0 if want_shed else None
+            backed = comm.gather_vec(state.inbox.drops > 0) \
+                if want_shed else None
             info_d = faults_mod.pack_wire_info(faults_wire, backed)[
                 dst_w.clamp(0, n - 1).to(torch.int64)]
             shed_m = None
@@ -279,7 +291,8 @@ def round_body(cfg: Config, manager: Any, model: Any, comm: LocalComm,
                 shed_m = shed
             cut = faults_mod.wire_cut_from_info(
                 faults_wire, info_d, kind_w != 0, gids, dst_w, alive_local,
-                state.faults.partition, seed, state.rnd, _MSG_FILTER_TAG)
+                comm.local(state.faults.partition), seed, state.rnd,
+                _MSG_FILTER_TAG)
             final = plane_ops.set_word(emc, W_KIND,
                                        torch.where(cut, 0, kind_w))
             out["inbox"] = comm.route(final)
@@ -301,25 +314,29 @@ def round_body(cfg: Config, manager: Any, model: Any, comm: LocalComm,
                         state.rnd)
             return out
 
-        wired = gate.cond(n_raw > 0, wire, quiet)
+        wired = gate.cond(any_emit, wire, quiet)
         inbox, shed_n = wired["inbox"], wired["shed_n"]
         if mx:
             fault_n, shed_ch = wired["fault_n"], wired["shed_ch"]
         if lx:
             lat_fault, lat_compact = wired["lat_fault"], wired["lat_compact"]
-        n_emitted = n_raw - shed_n
+        # the counts are this shard's; the books take the cluster's
+        n_emitted = comm.allsum(n_raw - shed_n)
         if lx:
             lat_outbox = latency_mod.zero_hist(dev)
         if mx:
-            m_fault, m_shed, m_outbox = fault_n, shed_n, zero
+            m_fault, m_shed, m_outbox = comm.allsum(fault_n), \
+                comm.allsum(shed_n), zero
             # emitted per channel: the pre-wire stack less the sheds
-            emit_ch = metrics_mod.channel_counts(cfg, emitted) - shed_ch
+            emit_ch = comm.allsum(
+                metrics_mod.channel_counts(cfg, emitted) - shed_ch)
             m_compact = zero
             if cfg.emit_compact:
                 # the fast arm compacts the pre-shed stack
                 live_row = (kind_raw != 0).sum(dim=1)
-                m_compact = (live_row - cfg.emit_compact).clamp(min=0) \
-                    .sum().to(torch.int32)
+                m_compact = comm.allsum(
+                    (live_row - cfg.emit_compact).clamp(min=0)
+                    .sum().to(torch.int32))
     else:
         # GENERIC arm: monotonic shed, interposition, emitted count, the
         # channel-capacity throttle, the fault filter, the interleaved
@@ -330,7 +347,7 @@ def round_body(cfg: Config, manager: Any, model: Any, comm: LocalComm,
         if want_shed:
             mono = torch.tensor([c.monotonic for c in cfg.channels],
                                 dtype=torch.bool, device=dev)
-            backed = state.inbox.drops > 0
+            backed = comm.gather_vec(state.inbox.drops > 0)
             ch = emitted[W_CHANNEL].clamp(0, cfg.n_channels - 1)
             dstv = emitted[W_DST].clamp(0, n - 1)
             shed = mono[ch.to(torch.int64)] & backed[dstv.to(torch.int64)] \
@@ -338,14 +355,14 @@ def round_body(cfg: Config, manager: Any, model: Any, comm: LocalComm,
             emitted = plane_ops.set_word(
                 emitted, W_KIND, torch.where(shed, 0, emitted[W_KIND]))
             if mx:
-                m_shed = _count(shed)
+                m_shed = comm.allsum(_count(shed))
         if interpose is not None:
             with scope.phase("round.interpose"):
                 istate, emitted = interpose.apply(cfg, comm, istate,
                                                   emitted, ctx)
-        n_emitted = _count(emitted[W_KIND] != 0)
+        n_emitted = comm.allsum(_count(emitted[W_KIND] != 0))
         if mx:
-            emit_ch = metrics_mod.channel_counts(cfg, emitted)
+            emit_ch = comm.allsum(metrics_mod.channel_counts(cfg, emitted))
         if lx:
             lat_outbox = latency_mod.zero_hist(dev)
         if channels_mod.enabled(cfg):
@@ -376,7 +393,8 @@ def round_body(cfg: Config, manager: Any, model: Any, comm: LocalComm,
             if capture or fx or lx or mx:
                 fault_dropped = (sent[W_KIND] != 0) \
                     & (emitted[W_KIND] == 0)
-        live_any = (emitted[W_KIND] != 0).any()
+        # the route holds collectives: the gate reads the whole cluster
+        live_any = comm.allmax((emitted[W_KIND] != 0).any())
         frozen = 0
         if fx:
             # one host read: the route gate, the round (the ring slot)
@@ -414,12 +432,13 @@ def round_body(cfg: Config, manager: Any, model: Any, comm: LocalComm,
                     (emitted[W_KIND] != 0) & (l_rank >= cfg.emit_compact),
                     state.rnd)
         if mx:
-            m_fault = _count(fault_dropped)
+            m_fault = comm.allsum(_count(fault_dropped))
             m_compact = zero
             if cfg.emit_compact:
                 live_row = (emitted[W_KIND] != 0).sum(dim=1)
-                m_compact = (live_row - cfg.emit_compact).clamp(min=0) \
-                    .sum().to(torch.int32)
+                m_compact = comm.allsum(
+                    (live_row - cfg.emit_compact).clamp(min=0)
+                    .sum().to(torch.int32))
 
         def routed():
             with scope.phase("round.route"):
@@ -428,8 +447,8 @@ def round_body(cfg: Config, manager: Any, model: Any, comm: LocalComm,
                 return comm.route(e)
 
         def quiet():
-            return exchange.empty_inbox(n, cfg.inbox_cap, cfg.wire_layout,
-                                        device=dev)
+            return exchange.empty_inbox(comm.n_local, cfg.inbox_cap,
+                                        cfg.wire_layout, device=dev)
 
         if fx:
             inbox = gate.choose(go, routed, quiet)
@@ -445,8 +464,8 @@ def round_body(cfg: Config, manager: Any, model: Any, comm: LocalComm,
     if mx:
         # inbox overflow is read before the dead-receiver stage folds its
         # own loss into the same drops field
-        m_inbox_of = _count(inbox.drops)
-        m_dead = _count(torch.where(dead, inbox.count, 0))
+        m_inbox_of = comm.allsum(_count(inbox.drops))
+        m_dead = comm.allsum(_count(torch.where(dead, inbox.count, 0)))
     ctrl_chmax = None
     if cfg.control.backpressure:
         # the backpressure sensor, computed once for latency too
@@ -473,10 +492,10 @@ def round_body(cfg: Config, manager: Any, model: Any, comm: LocalComm,
         else plane_ops.where(dead[:, None], 0, inbox.data),
         count=torch.where(dead, 0, inbox.count),
         drops=inbox.drops + torch.where(dead, inbox.count, 0))
-    ev_delivered = _count(inbox.count)
+    ev_delivered = comm.allsum(_count(inbox.count))
     if mx:
         # event-lane deliveries per channel, before the causal merge
-        deliver_ch = metrics_mod.channel_counts(cfg, inbox.data)
+        deliver_ch = comm.allsum(metrics_mod.channel_counts(cfg, inbox.data))
     causal_delivered = 0
     if delivery_mod.needs_inbound(cfg):
         # broadcast lanes bypass the route; p2p records are re-ordered
@@ -529,11 +548,18 @@ def round_body(cfg: Config, manager: Any, model: Any, comm: LocalComm,
             cov_ok = True
             if model is not None and hasattr(model, "coverage"):
                 n_al = alive_local.sum()
-                cov_ok = (n_al > 0) & (
-                    model.coverage(dstate_model, alive_local, 0) >= 1.0)
+                cov_l = model.coverage(dstate_model, alive_local, 0)
+                if comm.n_local == n:
+                    cov_ok = (n_al > 0) & (cov_l >= 1.0)
+                else:
+                    # every shard's alive rows covered (a shard with
+                    # none is vacuously so), and some node alive
+                    ok_l = (n_al == 0) | (cov_l >= 1.0)
+                    cov_ok = (comm.allsum(n_al.to(torch.int32)) > 0) & (
+                        comm.allsum((~ok_l).to(torch.int32)) == 0)
             return health_mod.record_snapshot(
-                cfg, comm, state.health, rnd=state.rnd, nbrs=nb,
-                alive=faults_wire.alive, cov_ok=cov_ok,
+                cfg, comm, state.health, rnd=state.rnd, nbrs_local=nb,
+                alive_global=faults_wire.alive, cov_ok=cov_ok,
                 partition=state.faults.partition)
 
         with scope.phase("round.health"):

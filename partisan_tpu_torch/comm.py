@@ -4,8 +4,16 @@
 program against — ``route`` (event records into inboxes) and
 ``push_max`` (monotonic state merge) — with every node on one device.
 The cross-shard reductions (``allsum``, ``allmax``, ``allmin``,
-``gather_vec``) are identities here; ``actor_gather`` slices the causal
-actor block.
+``gather_vec``) and ``local`` (a shard's rows of a replicated per-node
+vector) are identities here; ``actor_gather`` slices the causal actor
+block.  ``parallel/sharded.ShardComm`` runs the same interface on one
+shard of a mesh.
+
+The round treats what it is handed as read-only: it writes in place
+neither into a leaf of the state it steps (the flight ring, copied once
+per call, excepted) nor into what a collective returns (here the
+argument itself).  ``ShardedCluster`` hands its shards views of one
+global state, so it checks the first rule after every call.
 """
 
 from __future__ import annotations
@@ -35,6 +43,11 @@ class LocalComm:
     def local_ids(self) -> torch.Tensor:
         return torch.arange(self.n_global, dtype=torch.int32,
                             device=self.device)
+
+    def local(self, x):
+        """This shard's rows of a replicated per-node tensor (all of
+        them here; ``ShardComm`` slices its range)."""
+        return x
 
     def route(self, emitted) -> exchange.Inbox:
         return exchange.route(emitted, self.n_global, self.inbox_cap)

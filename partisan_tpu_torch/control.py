@@ -149,8 +149,8 @@ def pressure_signal(cfg, comm, inbox_data, dead: torch.Tensor, rnd
     from partisan_tpu_torch import types as T
 
     live = inbox_data[T.W_KIND] != 0
-    return latency_mod.channel_age_max(cfg, inbox_data,
-                                       live & ~dead[:, None], rnd)
+    return comm.allmax(latency_mod.channel_age_max(
+        cfg, inbox_data, live & ~dead[:, None], rnd))
 
 
 # ---------------------------------------------------------------------------

@@ -267,7 +267,9 @@ def outbound(cfg, comm, st: DeliveryState, emitted: Planes, ctx):
         out = plane_ops.scatter_rows(out, torch.where(store, tgt, C),
                                      emitted)
         n_fresh = fresh.sum(dim=1)
-        overflow = (n_fresh - n_free).clamp(min=0).sum().to(_I32)
+        # counters are this shard's: reduced so they stay replicated
+        overflow = comm.allsum((n_fresh - n_free).clamp(min=0).sum()
+                               .to(_I32))
         next_clock = ack.next_clock + n_fresh.to(_I32)
 
         # 4. Retransmit tick: re-emit the whole store, flagged.
@@ -287,8 +289,8 @@ def outbound(cfg, comm, st: DeliveryState, emitted: Planes, ctx):
     #    lane into wide records carrying the sender's clock.
     lanes_out, wide_out = [], []
     for li, lane in enumerate(st.lanes):
-        lane, wide, emitted = _causal_send(cfg, lane, li, emitted, gids,
-                                           alive, refire)
+        lane, wide, emitted = _causal_send(cfg, comm, lane, li, emitted,
+                                           gids, alive, refire)
         lanes_out.append(lane)
         wide_out.append(wide)
 
@@ -305,8 +307,9 @@ def outbound(cfg, comm, st: DeliveryState, emitted: Planes, ctx):
             (lane.reset_req >= 0).any(), lane.reack.any(),
             ((lane.src_seq > lane.src_acked) & (lane.src_ids >= 0)).any()
         ]).any()
-        if bool(go):
-            lane, blocks, emitted = _p2p_send(cfg, ctx, lane, lid, pi,
+        # the branch holds collectives: the gate reads the whole cluster
+        if bool(comm.allmax(go)):
+            lane, blocks, emitted = _p2p_send(cfg, comm, ctx, lane, lid, pi,
                                               emitted, is_ack_in, is_p,
                                               gids, refire)
         else:
@@ -324,7 +327,7 @@ def outbound(cfg, comm, st: DeliveryState, emitted: Planes, ctx):
         e_flags = emitted[T.W_FLAGS]
         leak = (emitted[T.W_KIND] != 0) & _flag(e_flags, T.F_CAUSAL) \
             & ~_flag(e_flags, T.F_P2P_STAMPED)
-        invalid = _count(leak)
+        invalid = comm.allsum(_count(leak))
         emitted = plane_ops.set_word(emitted, T.W_KIND, torch.where(
             leak, 0, emitted[T.W_KIND]))
     if extra:
@@ -335,7 +338,7 @@ def outbound(cfg, comm, st: DeliveryState, emitted: Planes, ctx):
             emitted, tuple(wide_out))
 
 
-def _causal_send(cfg, lane: CausalLane, li: int, emitted: Planes,
+def _causal_send(cfg, comm, lane: CausalLane, li: int, emitted: Planes,
                  gids, alive, refire):
     """Step 5 for one broadcast lane: (lane', wide records, emitted')."""
     A, EC, H = cfg.n_actors, cfg.causal_emit_cap, cfg.causal_hist_cap
@@ -357,7 +360,7 @@ def _causal_send(cfg, lane: CausalLane, li: int, emitted: Planes,
     new_clock = (lane.clock + onehot * n_kept[:, None]) & vclock.MASK32
     packed, _ = _compact(plane_ops.append_tail(emitted, msg_clocks), is_c,
                          EC)
-    dropped = (n_sent - n_kept).sum().to(_I32)
+    dropped = comm.allsum((n_sent - n_kept).sum().to(_I32))
 
     # Sender-side loss recovery: history ring + cadenced replay.
     valid_p = packed[T.W_KIND] != 0
@@ -389,8 +392,8 @@ def _p2p_fresh(emitted: Planes, lid: int, alive) -> torch.Tensor:
         & alive[:, None] & (emitted[T.W_DST] >= 0)
 
 
-def _p2p_send(cfg, ctx, lane: P2PLane, lid: int, pi: int, emitted: Planes,
-              is_ack_in, is_p, gids, refire):
+def _p2p_send(cfg, comm, ctx, lane: P2PLane, lid: int, pi: int,
+              emitted: Planes, is_ack_in, is_p, gids, refire):
     """Step 6 for one p2p lane (the gate's open branch): (lane', [fresh
     sends, replays, acks, reset requests], emitted')."""
     DC, EC, H = cfg.p2p_dst_cap, cfg.p2p_emit_cap, cfg.p2p_hist_cap
@@ -469,7 +472,7 @@ def _p2p_send(cfg, ctx, lane: P2PLane, lid: int, pi: int, emitted: Planes,
         & (dst_ep0.gather(1, hb) == _lane_epoch(hist[T.W_LANE])) \
         & alive_both[:, DC:]
     aborted = (hist[T.W_KIND] != 0) & ~stream_live
-    n_aborted = _count(aborted)
+    n_aborted = comm.allsum(_count(aborted))
     hist = plane_ops.set_word(hist, T.W_KIND,
                               torch.where(aborted, 0, hist[T.W_KIND]))
 
@@ -493,7 +496,7 @@ def _p2p_send(cfg, ctx, lane: P2PLane, lid: int, pi: int, emitted: Planes,
     valid0 = packed[T.W_KIND] != 0
     vrank = torch.cumsum(valid0, dim=1) - 1
     kept = valid0 & (vrank < n_free[:, None])
-    n_backpressured = _count(valid0 & ~kept)
+    n_backpressured = comm.allsum(_count(valid0 & ~kept))
     packed = plane_ops.set_word(packed, T.W_KIND,
                                 torch.where(kept, packed[T.W_KIND], 0))
     valid = kept
@@ -525,7 +528,8 @@ def _p2p_send(cfg, ctx, lane: P2PLane, lid: int, pi: int, emitted: Planes,
     anyhit = hit.any(dim=2)
     wslot = hit.to(torch.int8).argmax(dim=2)
     new_id = d.gather(1, wslot)
-    resets = _count(anyhit & (dst_ids0 >= 0) & (dst_ids0 != new_id))
+    resets = comm.allsum(_count(anyhit & (dst_ids0 >= 0)
+                                & (dst_ids0 != new_id)))
     dst_ids = _sel(anyhit, new_id, dst_ids0)
     dst_seq = _sel(anyhit, seq.gather(1, wslot), dst_seq0)
     dst_ep = _sel(anyhit, ep.gather(1, wslot), dst_ep0)
@@ -563,7 +567,8 @@ def _p2p_send(cfg, ctx, lane: P2PLane, lid: int, pi: int, emitted: Planes,
         reack=torch.where(alive1, lane.reack & ~ack_now, lane.reack),
         reset_req=torch.where(alive1, -1, lane.reset_req),
         hist=plane_ops.where(alive1, hist, lane.hist),
-        overflow=lane.overflow + cap_dropped + n_backpressured,
+        overflow=lane.overflow + comm.allsum(cap_dropped)
+        + n_backpressured,
         resets=lane.resets + resets,
         aborted=lane.aborted + n_aborted)
     return lane, [packed, replay, ack_msgs, rst_msgs], emitted
@@ -625,8 +630,10 @@ def inbound(cfg, comm, st: DeliveryState, inbox: exchange.Inbox,
             & _flag(flags, T.F_P2P_STAMPED) \
             & ((msgs[T.W_LANE] & 0xFF) == lid)
         # one host read: an idle receive side passes everything through
-        if bool(is_p.any() | (lane.buf[T.W_KIND] != 0).any()):
-            lane, inbox, k = _p2p_recv(cfg, lane, lid, is_p, inbox, ctx)
+        # the branch holds collectives: the gate reads the whole cluster
+        if bool(comm.allmax(is_p.any() | (lane.buf[T.W_KIND] != 0).any())):
+            lane, inbox, k = _p2p_recv(cfg, comm, lane, lid, is_p, inbox,
+                                       ctx)
             n_causal = n_causal + k
         p2p_out.append(lane)
     return st._replace(lanes=tuple(lanes_out), p2p=tuple(p2p_out)), \
@@ -743,16 +750,16 @@ def _causal_recv(cfg, comm, lane: CausalLane, li: int, payload: Planes,
     ftop, fidx = rng.topk(-fkeys, B)
     new_buf = _fetch(lane.buf, shared, torch.where(-ftop < INF, fidx, INF))
     n_fut = (fkeys < INF).sum(dim=1)
-    buf_overflow = (n_fut - B).clamp(min=0).sum().to(_I32)
+    buf_overflow = comm.allsum((n_fut - B).clamp(min=0).sum().to(_I32))
     lane = lane._replace(
         clock=clock_f,
         buf=plane_ops.where(alive[:, None], new_buf, lane.buf),
         overflow=lane.overflow + buf_overflow)
-    return lane, inbox, n_deliv.sum().to(_I32)
+    return lane, inbox, comm.allsum(n_deliv.sum().to(_I32))
 
 
-def _p2p_recv(cfg, lane: P2PLane, lid: int, is_p, inbox: exchange.Inbox,
-              ctx):
+def _p2p_recv(cfg, comm, lane: P2PLane, lid: int, is_p,
+              inbox: exchange.Inbox, ctx):
     """The receive side of one p2p lane (the gate's open branch):
     candidates are this round's stamped arrivals plus the buffer; a
     record delivers when its stream is in order (seq == last + 1) or
@@ -830,7 +837,8 @@ def _p2p_recv(cfg, lane: P2PLane, lid: int, is_p, inbox: exchange.Inbox,
         quota = quota - deliver.sum(dim=1, dtype=_I32)
         avail = avail & ~deliver & ~dup
         dels.append(deliver)
-    resets = _count((lane.src_ids >= 0) & (s_ids != lane.src_ids))
+    resets = comm.allsum(_count((lane.src_ids >= 0)
+                                & (s_ids != lane.src_ids)))
 
     # Delivery order = (sweep, key); the epoch bits leave W_LANE.
     okey = torch.full((n, C), _INF2, dtype=_I32, device=dev)
@@ -845,7 +853,7 @@ def _p2p_recv(cfg, lane: P2PLane, lid: int, is_p, inbox: exchange.Inbox,
     n_deliv = (okey < _INF2).sum(dim=1, dtype=_I32)
     # The event lane already counted the routed arrivals: this lane's net
     # contribution is its deliveries minus the arrivals it pulled out.
-    n_causal = (n_deliv.sum() - is_p.sum()).to(_I32)
+    n_causal = comm.allsum((n_deliv.sum() - is_p.sum()).to(_I32))
     inbox = exchange.merge_inboxes(base, exchange.Inbox(
         data=drecs, count=n_deliv.clamp(max=D2),
         drops=torch.zeros_like(inbox.drops)))
@@ -857,7 +865,7 @@ def _p2p_recv(cfg, lane: P2PLane, lid: int, is_p, inbox: exchange.Inbox,
     new_buf = plane_ops.take_rows(cmsg, torch.where(-ftop < _INF2, fidx, C),
                                   fill=True)
     n_fut = (fkey < _INF2).sum(dim=1)
-    shed = (n_fut - B2).clamp(min=0).sum().to(_I32)
+    shed = comm.allsum((n_fut - B2).clamp(min=0).sum().to(_I32))
 
     # Stream-reset requests: pending candidates whose stream we cannot
     # place (untracked or re-epoched, mid-sequence), first per sender.

@@ -12,9 +12,12 @@ It also packs one int32 digest word — the one-scalar poll
 ``scenarios._converge`` reads.  ``Config.health=0`` keeps the state leaf
 ``()``.
 
-On one device the reference's segment-local (``_sharded``) kernels
-reduce to the global ones, which is what is ported here; the sharded
-plane waits for the sharded cluster.
+The snapshot runs the reference's segment-local kernels: each shard
+of a sharded cluster (``parallel/sharded.py``) touches only its own
+``[n_local, K]`` neighbor rows, and the cross-shard state is label and
+alive VECTORS (the FastSV halo) and scalar reductions, never a gathered
+``[n, K]`` table.  On a ``LocalComm`` every collective is the identity
+and the segment-local kernels run exactly the global kernels' ops.
 """
 
 from __future__ import annotations
@@ -161,6 +164,104 @@ def out_degrees(nbrs: torch.Tensor, alive: torch.Tensor,
     return live_edges(nbrs, alive, partition).sum(dim=1, dtype=torch.int32)
 
 
+def _sharded(comm, n: int) -> bool:
+    return comm.n_local != n
+
+
+def live_edges_local(nbrs_local: torch.Tensor, alive_local: torch.Tensor,
+                     alive_global: torch.Tensor, comm,
+                     partition: torch.Tensor | None = None
+                     ) -> torch.Tensor:
+    """bool[n_local, K]: :func:`live_edges` for one shard's rows; remote
+    endpoints are read from the replicated ``alive_global`` vector."""
+    n = alive_global.shape[0]
+    nc = nbrs_local.clamp(0, n - 1).to(torch.int64)
+    live = (nbrs_local >= 0) & alive_local[:, None] & alive_global[nc]
+    if partition is not None and partition.dim() > 0:
+        if partition.dim() == 2:
+            rows = comm.local_ids().to(torch.int64)[:, None] \
+                if _sharded(comm, n) \
+                else torch.arange(n, device=nbrs_local.device)[:, None]
+            live = live & ~partition[rows, nc]
+        else:
+            live = live & (comm.local(partition)[:, None] == partition[nc])
+    return live
+
+
+def component_count_sharded(nbrs_local: torch.Tensor,
+                            alive_global: torch.Tensor, comm,
+                            partition: torch.Tensor | None = None):
+    """Segment-local FastSV with a label halo: :func:`component_count`
+    for one shard's rows, equal to it by construction.  Each shard keeps
+    labels for its own rows and, per iteration, exchanges two label
+    vectors: the halo gather (``comm.gather_vec`` of its labels, so its
+    edges read remote neighbors' labels) and the halo reduce (its hook
+    proposals for every node, met across shards by ``comm.allmin`` and
+    sliced back).  min is order-free, so the concatenated labels equal
+    the global kernel's after every iteration.  Returns ``(labels
+    int32[n_local], count int32)``, the count allsum-reduced."""
+    n = alive_global.shape[0]
+    dev = alive_global.device
+    if not _sharded(comm, n):
+        return component_count(nbrs_local, alive_global, partition)
+    gids = comm.local_ids().to(torch.int64)
+    alive_l = comm.local(alive_global)
+    if nbrs_local.shape[1] == 0 or n == 1:
+        return gids.to(torch.int32), comm.allsum(
+            alive_l.sum(dtype=torch.int32))
+    nc = nbrs_local.clamp(0, n - 1).to(torch.int64)
+    live = live_edges_local(nbrs_local, alive_l, alive_global, comm,
+                            partition)
+    tgt_v = torch.where(live, nc, n).reshape(-1)
+    fill = torch.full((n + 1,), n, dtype=torch.int64, device=dev)
+    f_l = gids
+    for _ in range(int(math.ceil(math.log2(max(n, 2)))) + 4):
+        f_g = comm.gather_vec(f_l)                       # the halo
+        g_g = f_g[f_g]                                   # grandparents
+        g_l = comm.local(g_g)
+        gv = torch.where(live, g_g[nc], n)               # nbr grandparents
+        gb = g_l[:, None].expand(live.shape).reshape(-1)
+        m = torch.minimum(torch.minimum(f_l, g_l), gv.min(dim=1).values)
+        fu = torch.where(live, f_l[:, None], n).reshape(-1)
+        fv = torch.where(live, f_g[nc], n).reshape(-1)
+        # hook proposals for any node, this shard's and remote ones
+        prop = fill.scatter_reduce(
+            0, torch.cat([tgt_v, fu, fv]),
+            torch.cat([gb, gv.reshape(-1), gb]), "amin",
+            include_self=True)[:n]
+        f_l = torch.minimum(m, comm.local(comm.allmin(prop)))
+    count = comm.allsum(((f_l == gids) & alive_l).sum(dtype=torch.int32))
+    return f_l.to(torch.int32), count
+
+
+def symmetry_violations_sharded(nbrs_local: torch.Tensor,
+                                alive_global: torch.Tensor, comm,
+                                partition: torch.Tensor | None = None
+                                ) -> torch.Tensor:
+    """:func:`symmetry_violations` over one shard's rows: the back-edge
+    check reads one neighbor-table column at a time, exchanged as a
+    global ``[n]`` vector, against this shard's ``[n_local, K]`` edges;
+    allsum-reduced."""
+    n = alive_global.shape[0]
+    if not _sharded(comm, n):
+        return symmetry_violations(nbrs_local, alive_global, partition)
+    K = nbrs_local.shape[1]
+    if K == 0:
+        return comm.allsum(torch.zeros((), dtype=torch.int32,
+                                       device=nbrs_local.device))
+    gids = comm.local_ids()
+    alive_l = comm.local(alive_global)
+    nc = nbrs_local.clamp(0, n - 1).to(torch.int64)
+    live = live_edges_local(nbrs_local, alive_l, alive_global, comm,
+                            partition)
+    me = gids[:, None]
+    has_back = torch.zeros_like(live)
+    for s in range(K):
+        col = comm.gather_vec(nbrs_local[:, s].contiguous())  # [n]
+        has_back = has_back | (col[nc] == me)
+    return comm.allsum((live & ~has_back).sum(dtype=torch.int32))
+
+
 def symmetry_violations(nbrs: torch.Tensor, alive: torch.Tensor,
                         partition: torch.Tensor | None = None
                         ) -> torch.Tensor:
@@ -265,29 +366,36 @@ def digest(state) -> int | list:
 # ---------------------------------------------------------------------------
 
 def record_snapshot(cfg, comm, hs: HealthState, *, rnd: torch.Tensor,
-                    nbrs: torch.Tensor, alive: torch.Tensor, cov_ok,
-                    partition: torch.Tensor | None = None) -> HealthState:
+                    nbrs_local: torch.Tensor, alive_global: torch.Tensor,
+                    cov_ok, partition: torch.Tensor | None = None
+                    ) -> HealthState:
     """Compute one topology snapshot and write it into the ring.
-    ``alive`` arrives masked by the active prefix under
-    ``Config.width_operand``; ``cov_ok`` is the model's slot-0
-    coverage-complete predicate (True without a coverage notion).  The
-    reductions go through ``comm`` as the reference's do (identities on
-    one device).  The first snapshot only sets the churn baseline (zero
-    churn)."""
+    ``nbrs_local`` is this shard's neighbor rows (global ids); every
+    graph kernel runs segment-locally over them and the ring values are
+    reduced, so every shard writes the same ring.  ``alive_global``
+    arrives masked by the active prefix under ``Config.width_operand``;
+    ``cov_ok`` is the cross-shard slot-0 coverage-complete predicate
+    (True without a coverage notion).  The first snapshot only sets the
+    churn baseline (zero churn)."""
     R = cfg.health_ring
-    _, comps = component_count(nbrs, alive, partition)
-    deg = out_degrees(nbrs, alive, partition)
-    n_alive = comm.allsum(alive.sum(dtype=torch.int32))
-    iso = comm.allsum((alive & (deg == 0)).sum(dtype=torch.int32))
-    hist = comm.allsum(degree_histogram(deg, alive))
+    alive = alive_global
+    alive_l = comm.local(alive)
+    _, comps = component_count_sharded(nbrs_local, alive, comm, partition)
+    deg = live_edges_local(nbrs_local, alive_l, alive, comm,
+                           partition).sum(dim=1, dtype=torch.int32)
+    n_alive = comm.allsum(alive_l.sum(dtype=torch.int32))
+    iso = comm.allsum((alive_l & (deg == 0)).sum(dtype=torch.int32))
+    hist = comm.allsum(degree_histogram(deg, alive_l))
     dmin = torch.where(
-        n_alive > 0, comm.allmin(torch.where(alive, deg, _BIG).min()), 0) \
-        .to(torch.int32)
-    dmax = comm.allmax(torch.where(alive, deg, 0).max()).to(torch.int32)
-    sym = symmetry_violations(nbrs, alive, partition)
+        n_alive > 0, comm.allmin(torch.where(alive_l, deg, _BIG).min()),
+        0).to(torch.int32)
+    dmax = comm.allmax(torch.where(alive_l, deg, 0).max()).to(torch.int32)
+    sym = symmetry_violations_sharded(nbrs_local, alive, comm, partition)
 
     first = (hs.digest & DIGEST_VALID) == 0
-    conn = alive & (deg > 0)
+    # segment-local connectivity, gathered back to the replicated vector
+    # the churn windows diff against
+    conn = comm.gather_vec(alive_l & (deg > 0))
 
     def window(prev, now):
         return torch.where(first, 0, (prev & now).sum(dtype=torch.int32)) \

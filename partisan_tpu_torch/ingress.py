@@ -111,8 +111,9 @@ def release(cfg, comm, gs: IngressState, ctx):
     block = msg_ops.build(cfg, T.MsgKind.APP, gids[:, None],
                           torch.where(fire, gs.dst, -1), channel=ch,
                           payload=(gs.payload,))
-    n_fire = fire.sum().to(_I32)
-    shed_ch = gs.shed_pend + metrics_mod.bin_count(ch, stale, C)
+    # the ledgers are replicated: this shard's counts reduce first
+    n_fire = comm.allsum(fire.sum().to(_I32))
+    shed_ch = gs.shed_pend + comm.allsum(metrics_mod.bin_count(ch, stale, C))
     shed_round = shed_ch.sum().to(_I32)
     out = IngressState(
         dst=torch.where(due, -1, gs.dst),

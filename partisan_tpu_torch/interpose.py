@@ -116,10 +116,12 @@ class OmissionSchedule:
         t = torch.where((t >= 0) & (t < n_pad), t, n_pad)
         sched = state[t.to(torch.int64)]
         rows, width = sched.shape
-        if rows < comm.n_local:         # partial schedules: rest passes
+        if rows < comm.n_global:        # partial schedules: rest passes
             sched = torch.cat([sched, sched.new_zeros(
-                (comm.n_local - rows, width))])
-        local = sched[:comm.n_local]
+                (comm.n_global - rows, width))])
+        # this shard's sender rows
+        lo = comm.node_offset
+        local = sched[lo:lo + comm.n_local]
         e = emitted[T.W_KIND].shape[1]
         if width < e:
             local = torch.cat([local, local.new_zeros(
@@ -198,7 +200,8 @@ def _hold_release(comm, state, emitted, ctx, *, hold, rounds_row, cap,
 
     # 3. Append the released messages to this round's emissions.
     out = plane_ops.concat([emitted, released], dim=1)
-    missed = state["missed"] + (hold & ~can).sum().to(torch.int32)
+    missed = state["missed"] + comm.allsum(
+        (hold & ~can).sum().to(torch.int32))
     return {**state, "buf": buf, "due": due, "missed": missed}, out
 
 
@@ -263,3 +266,17 @@ class Chain:
             s, emitted = item.apply(cfg, comm, s, emitted, ctx)
             out_states.append(s)
         return tuple(out_states), emitted
+
+
+def specs(interpose, state, shard, repl):
+    """The sharded cluster's placement of an interposition state: hold
+    buffers shard on the node axis, counters, observers and omission
+    schedules (which cover every sender) replicate."""
+    if isinstance(interpose, Chain):
+        return tuple(specs(i, s, shard, repl)
+                     for i, s in zip(interpose.items, state))
+    if isinstance(state, dict):
+        return {k: repl if k == "missed" else shard for k in state}
+    if isinstance(state, torch.Tensor):
+        return repl
+    return ()

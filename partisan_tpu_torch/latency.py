@@ -174,9 +174,11 @@ def record_round(cfg, comm, ls: LatencyState, *, rnd, inbox_data, dead,
 
     live = inbox_data[T.W_KIND] != 0
     delivered = live & ~dead[:, None]
-    dlv = channel_age_hist(cfg, inbox_data, delivered, rnd)
+    # the histograms are this shard's: reduced before they accumulate
+    dlv = comm.allsum(channel_age_hist(cfg, inbox_data, delivered, rnd))
     if chmax is None:
-        chmax = channel_age_max(cfg, inbox_data, delivered, rnd)
+        chmax = comm.allmax(channel_age_max(cfg, inbox_data, delivered,
+                                            rnd))
     hwm = torch.maximum(ls.age_hwm, chmax)
     dead_hist = age_hist(inbox_data, live & dead[:, None], rnd)
     rows = [torch.zeros(N_BUCKETS, dtype=_I32, device=dlv.device)
@@ -186,7 +188,8 @@ def record_round(cfg, comm, ls: LatencyState, *, rnd, inbox_data, dead,
     rows[CAUSE_OUTBOX] = outbox_hist
     rows[CAUSE_DEAD] = dead_hist
     return LatencyState(deliver=ls.deliver + dlv,
-                        drop_age=ls.drop_age + torch.stack(rows),
+                        drop_age=ls.drop_age + comm.allsum(
+                            torch.stack(rows)),
                         age_hwm=hwm)
 
 

@@ -112,25 +112,43 @@ def census_program(prog: Program) -> Census:
     return census(prog.ops, n, prog.kernels)
 
 
-def resident_memory_rows(state) -> list[dict]:
-    """Resident bytes of a state on its one device: one row per
-    top-level field, heaviest first, and a trailing total row (what
-    tools/soak_report.py stamps on a soak in the reference)."""
-    from torch.utils import _pytree
+def state_memory_rows(state, specs, n_shards: int) -> list[dict]:
+    """Resident bytes per device of a ``ClusterState`` placed by
+    ``specs`` (``ShardedCluster._state_specs``: a leaf split on a node
+    axis divides by ``n_shards``, a replicated one does not): one row
+    per top-level field, heaviest first, and a trailing total row."""
+    from partisan_tpu_torch import state_io
+    from partisan_tpu_torch.parallel.sharded import OWN, REPL
 
     rows = []
     total = 0
     for field in state._fields:
-        leaves = [x for x in _pytree.tree_leaves(getattr(state, field))
-                  if hasattr(x, "element_size")]
+        leaves = [x for _, x in state_io.flatten(getattr(state, field))]
         if not leaves:
             continue
-        b = sum(x.numel() * x.element_size() for x in leaves)
+        spec_leaves = [x for _, x in state_io.flatten(getattr(specs, field))]
+        if len(spec_leaves) != len(leaves):
+            raise ValueError(f"state/spec leaf mismatch under {field!r}: "
+                             f"{len(leaves)} vs {len(spec_leaves)}")
+        b = sum(x.numel() * x.element_size()
+                // (1 if spec in (REPL, OWN) else n_shards)
+                for x, spec in zip(leaves, spec_leaves))
         rows.append({"plane": field, "mib_per_device": round(b / 2**20, 3)})
         total += b
     rows.sort(key=lambda r: -r["mib_per_device"])
     rows.append({"plane": "total", "mib_per_device": round(total / 2**20, 3)})
     return rows
+
+
+def resident_memory_rows(state) -> list[dict]:
+    """Resident bytes of a state on its one device: the one-shard case
+    of :func:`state_memory_rows` (what tools/soak_report.py stamps on a
+    soak in the reference)."""
+    from partisan_tpu_torch import state_io
+    from partisan_tpu_torch.parallel.sharded import REPL
+
+    return state_memory_rows(
+        state, state_io.tree_map(lambda _: REPL, state), 1)
 
 
 def bench_cfg(n: int = 32_768, *, width_operand: bool = False):

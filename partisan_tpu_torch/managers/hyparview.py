@@ -251,6 +251,9 @@ class HyParView:
                                & (kind <= K.HPV_XBOT_REPLACE_REPLY))
             cad = cad | x_timer.any()
         busy = is_ctl.any() | (join_tgt >= 0).any() | state.leaving.any()
+        # both bodies hold collectives on a sharded cluster: the gates
+        # read the whole cluster
+        busy, cad = comm.allmax(busy), comm.allmax(cad)
 
         BUSY_SHAPES = [cap, A, A, A, A, 1, 1] + ([cap] if xbot else [])
         CAD_SHAPES = [1, 1] + ([1] if xbot else [])
@@ -439,7 +442,7 @@ class HyParView:
                                  & (joiner >= 0)[:, None], active0, -1)
             me2b = me2.expand(fj_tgt.shape)
             fanout_fj, fanout_dep = gate.cond(
-                has_fresh.any(),
+                comm.allmax(has_fresh.any()),
                 lambda: self._fj_walk(cfg, comm, ranked, gids, active0,
                                       asize0, joiner, fj_tgt, me2b),
                 lambda: (msg_ops.zero_stack(cfg, (n_local, A), dev),
@@ -502,10 +505,12 @@ class HyParView:
 
         # ---- cadenced sends: shuffle walk, promotion ---------------------
         def cadenced():
+            glob_act = comm.gather_vec(active0)              # [n_global, A]
             sh_tgt = row_ranked(active0, _TAG_SHTGT, 1)[:, 0]
             curs, prevs = sh_tgt, gids
             for h in range(hv.arwl - 1):
-                vc = active0[curs.clamp(0, comm.n_global - 1).to(torch.int64)]
+                vc = glob_act[curs.clamp(0, comm.n_global - 1)
+                              .to(torch.int64)]
                 r = ranked(_TAG_SHWALK, gids[:, None], h * A + arangeA[None, :])
                 okm = (vc >= 0) & (vc != gids[:, None]) \
                     & (vc != prevs[:, None]) & (vc != curs[:, None])
@@ -651,15 +656,18 @@ class HyParView:
         dev = active0.device
         arangeA = torch.arange(A, dtype=torch.int32, device=dev)
         jb = joiner[:, None].expand(fj_tgt.shape)
+        # the walk reads remote views: the round-start views, gathered
+        glob_act = comm.gather_vec(active0)                  # [n_global, A]
+        glob_asz = comm.gather_vec(asize0)                   # [n_global]
         curf, prevf = fj_tgt, me2b
         stopped = fj_tgt < 0
         endpoint = torch.full_like(fj_tgt, -1)
         depnode = torch.full_like(fj_tgt, -1)
         for h in range(hv.arwl):
             cc = curf.clamp(0, comm.n_global - 1).to(torch.int64)
-            vc = active0[cc]                                   # [n, A, A]
+            vc = glob_act[cc]                                  # [n, A, A]
             j_in = ((vc == jb[:, :, None]) & (vc >= 0)).any(dim=2)
-            small = asize0[cc] <= 1
+            small = glob_asz[cc] <= 1
             r = ranked(_TAG_FJWALK, gids[:, None, None],
                        arangeA[None, :, None], h * A + arangeA[None, None, :])
             okm = (vc >= 0) & (vc != jb[:, :, None]) \
@@ -688,12 +696,19 @@ class HyParView:
         return state.active
 
     def members(self, cfg, state: HyParViewState, comm=None):
-        """bool[n, n]: itself + its active view."""
-        n = state.active.shape[0]
+        """bool[n_local, n_global]: itself + its active view (a whole
+        state without ``comm``)."""
+        n_local = state.active.shape[0]
         dev = state.active.device
-        out = torch.zeros((n, n + 1), dtype=torch.bool, device=dev)
-        rows = torch.arange(n, device=dev)
-        out[rows, rows] = True
+        if comm is not None:
+            n = comm.n_global
+            gids = comm.local_ids().to(torch.int64)
+        else:
+            n = n_local
+            gids = torch.arange(n, device=dev)
+        out = torch.zeros((n_local, n + 1), dtype=torch.bool, device=dev)
+        rows = torch.arange(n_local, device=dev)
+        out[rows, gids] = True
         cols = torch.where(state.active >= 0, state.active, n).to(torch.int64)
         out[rows[:, None].expand_as(cols), cols] = True
         return out[:, :n]

@@ -125,20 +125,23 @@ def record_round(cfg, comm, ms: MetricsState, *, rnd, emitted_ch,
     ``alive_local``/``alive_global`` arrive masked by the active prefix
     under ``Config.width_operand``."""
     slot = torch.remainder(rnd, cfg.metrics_ring)
-    occ = inbox_count.sum().to(_I32)
-    hwm = inbox_count.max().to(_I32)
+    # inbox_count, nbrs and alive_local are this shard's rows: every
+    # value is reduced across shards before it is written
+    occ = comm.allsum(inbox_count.sum().to(_I32))
+    hwm = comm.allmax(inbox_count.max().to(_I32))
     # an edge is live only if both endpoints are alive
     live_nbr = (nbrs >= 0) & alive_global[
         nbrs.clamp(0, cfg.n_nodes - 1).to(torch.int64)]
     e = live_nbr.sum(dim=1).to(_I32)
     e = torch.where(alive_local, e, 0)
-    n_alive = alive_local.sum().to(_I32)
-    e_total = e.sum().to(_I32)
-    e_max = e.max()
+    n_alive = comm.allsum(alive_local.sum().to(_I32))
+    e_total = comm.allsum(e.sum().to(_I32))
+    e_max = comm.allmax(e.max())
     # min over alive nodes only; an all-dead cluster reports 0
-    e_min = torch.where(n_alive > 0,
-                        -torch.where(alive_local, -e, -_BIG).max(),
-                        0).to(_I32)
+    e_min = torch.where(
+        n_alive > 0,
+        -comm.allmax(torch.where(alive_local, -e, -_BIG).max()),
+        0).to(_I32)
     return MetricsState(
         rnd=put(ms.rnd, slot, rnd),
         emitted=put(ms.emitted, slot, emitted_ch),

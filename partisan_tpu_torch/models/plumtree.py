@@ -128,8 +128,11 @@ class Plumtree:
         is_pr = kind == K.PT_PRUNE
         is_ak = kind == K.PT_IHAVE_ACK
 
-        pt_go = ((is_g | is_ih | is_gr | is_pr | is_ak).any() | npu.any()
-                 | (lazyp & (nbrs >= 0)[:, None, :]).any())
+        # the gates read the whole cluster (allmax), since their branches
+        # hold collectives on a sharded cluster
+        pt_go = comm.allmax(
+            (is_g | is_ih | is_gr | is_pr | is_ak).any() | npu.any()
+            | (lazyp & (nbrs >= 0)[:, None, :]).any())
         PT_SHAPES = (cap, S * Kn, L)
         tgt_ep, nonmono = state.epoch, state.nonmono
         carried = (data, rr, pruned, lazyp, npu, psrc, tgt_ep, nonmono)
@@ -339,8 +342,8 @@ class Plumtree:
                 if pt.exchange_limit == 0:
                     pulled, pulled_ep = hand_pull()
                 else:
-                    pulled, pulled_ep = gate.cond(hand_any, hand_pull,
-                                                  no_pull)
+                    pulled, pulled_ep = gate.cond(comm.allmax(hand_any),
+                                                  hand_pull, no_pull)
                 if pt.exchange_limit > 0:
                     slots = rng.choice_slots(rng.subkey(ctx.keys, _TAG_AAE),
                                              nbrs >= 0, pt.exchange_limit)
@@ -366,7 +369,7 @@ class Plumtree:
                 return data, rr, pruned, lazyp, psrc, tgt_ep
 
             data, rr, pruned, lazyp, psrc, tgt_ep = gate.cond(
-                go_local, aae_body, lambda: aae_in)
+                comm.allmax(go_local), aae_body, lambda: aae_in)
 
         # crash-stopped nodes are frozen and silent
         dead = ~ctx.alive

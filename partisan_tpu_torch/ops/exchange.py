@@ -34,13 +34,17 @@ def empty_inbox(n: int, cap: int, layout: Sequence, device=None) -> Inbox:
         drops=torch.zeros(n, dtype=torch.int32, device=device))
 
 
-def route(emitted: plane_ops.Planes, n: int, cap: int) -> Inbox:
-    """Route ``[m, E]`` records into an n-node inbox of ``cap`` slots."""
+def route(emitted: plane_ops.Planes, n: int, cap: int,
+          node_offset: int = 0) -> Inbox:
+    """Route ``[m, E]`` records into an n-node inbox of ``cap`` slots.
+    ``node_offset`` is the global id of inbox row 0: destinations outside
+    ``[node_offset, node_offset + n)`` are ignored (a shard routing the
+    gathered emissions into its own node range)."""
     flat = emitted.map(lambda w: w.reshape(-1))
     dev = flat[0].device
     m = flat[0].shape[0]
     kind = flat[W_KIND]
-    dst = flat[W_DST]
+    dst = flat[W_DST] if node_offset == 0 else flat[W_DST] - node_offset
     local = (kind != 0) & (dst >= 0) & (dst < n)
     dst = torch.where(local, dst, n)
 

@@ -182,8 +182,10 @@ def record_round(cfg, comm, spec: ProvSpec | None, ps: ProvenanceState, *,
     delivered = live_in & ~dead[:, None]
     dev = live_in.device
 
-    ctl_e = _ctl_counts(emitted, emitted[T.W_KIND] != 0)
-    ctl_d = _ctl_counts(inbox_data, delivered)
+    # the inputs are this shard's rows: counts and rings reduce before
+    # they are written, the forest tables stay per node
+    ctl_e = comm.allsum(_ctl_counts(emitted, emitted[T.W_KIND] != 0))
+    ctl_d = comm.allsum(_ctl_counts(inbox_data, delivered))
     ctl_row = torch.stack([ctl_e, ctl_d], dim=-1)         # [N_CTL, 2]
 
     parent, hop, crnd, epoch = ps.parent, ps.hop, ps.claim_rnd, ps.epoch
@@ -239,16 +241,16 @@ def record_round(cfg, comm, spec: ProvSpec | None, ps: ProvenanceState, *,
             torch.full((n_local, B), cap, dtype=_I32, device=dev),
             torch.where(winner, b, B), slot_c, "amin")
         claim_copy = winner & (slot_c == torch.gather(smin, 1, b64))
-        dup_ch = metrics_mod.channel_counts(cfg, inbox_data,
-                                            mask=g & ~claim_copy)
-        n_g = g.sum().to(_I32)
-        n_claims = claim_copy.sum().to(_I32)
+        dup_ch = comm.allsum(metrics_mod.channel_counts(
+            cfg, inbox_data, mask=g & ~claim_copy))
+        n_g = comm.allsum(g.sum().to(_I32))
+        n_claims = comm.allsum(claim_copy.sum().to(_I32))
 
-    depth_hwm = torch.maximum(
-        ps.depth_hwm, torch.where(parent >= 0, hop, 0).max(dim=0).values)
+    depth_hwm = torch.maximum(ps.depth_hwm, comm.allmax(
+        torch.where(parent >= 0, hop, 0).max(dim=0).values))
     covered = (parent >= 0) & alive_local[:, None]
-    cnt = covered.sum(dim=0).to(_I32)                           # [B]
-    n_alive = alive_local.sum().to(_I32)
+    cnt = comm.allsum(covered.sum(dim=0).to(_I32))              # [B]
+    n_alive = comm.allsum(alive_local.sum().to(_I32))
     full = (n_alive > 0) & (cnt == n_alive)
     cover_rnd = torch.where((ps.cover_rnd < 0) & full, rnd, ps.cover_rnd)
 

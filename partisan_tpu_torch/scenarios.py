@@ -44,6 +44,7 @@ from __future__ import annotations
 
 import functools
 import math
+import os
 import time
 
 import numpy as np
@@ -178,12 +179,36 @@ def _emit_metrics(cfg: Config, st, label) -> None:
               file=sys.stderr)
 
 
+# At or above this many nodes, with more than one shard available,
+# make_cluster_auto returns a ShardedCluster (override with
+# PARTISAN_SHARDED_N, as the reference's scenarios module reads it).
+SHARDED_N_MIN = int(os.environ.get("PARTISAN_SHARDED_N", 65_536))
+
+
 def make_cluster_auto(cfg: Config, model=None, interpose=None,
                       device=None):
-    """The scenario cluster factory.  On one card this is ``Cluster``
-    (the sharded cluster is not ported)."""
+    """The cluster factory, sharded by default at scale: at
+    ``n >= SHARDED_N_MIN`` with a shard count above 1
+    (``parallel.mesh.shard_count``: the pinned count or
+    ``PARTISAN_SHARDS``, else the number of cards) a ``ShardedCluster``
+    over the largest shard count that divides n, on ``device``; a prime
+    n, a count of 1 or a smaller n get the one-device ``Cluster``.  Both
+    have the same API, and evolve the same state."""
+    from partisan_tpu_torch import device as device_mod
+    from partisan_tpu_torch.parallel import mesh as mesh_mod
+
+    dev = device_mod.resolve(device)
+    count = mesh_mod.shard_count(dev)
+    if cfg.n_nodes >= SHARDED_N_MIN and count > 1:
+        for k in range(count, 1, -1):
+            if cfg.n_nodes % k == 0:
+                from partisan_tpu_torch.parallel.sharded import (
+                    ShardedCluster)
+
+                return ShardedCluster(cfg, mesh_mod.make_mesh(k, device=dev),
+                                      model=model, interpose=interpose)
     return cluster_mod.Cluster(cfg, model=model, interpose=interpose,
-                               device=device)
+                               device=dev)
 
 
 def _boot_fullmesh(cl, n):

@@ -309,11 +309,20 @@ def test_port_imports_no_jax():
             "partisan_tpu_torch.lint.cost_budgets, "
             "partisan_tpu_torch.lint.rules, "
             "partisan_tpu_torch.lint.matrix, "
-            "partisan_tpu_torch.ops.scope; "
+            "partisan_tpu_torch.ops.scope, "
+            "partisan_tpu_torch.parallel, "
+            "partisan_tpu_torch.parallel.mesh, "
+            "partisan_tpu_torch.parallel.sharded; "
             "sys.path.insert(0, 'tools'); "
             "import torch_perf_report, torch_bench_history, torch_lint; "
             "torch_lint.main(['--quick']); "
             "torch_perf_report.main(['--cost', '64', '--device', 'cpu']); "
+            "from partisan_tpu_torch.config import Config; "
+            "from partisan_tpu_torch.parallel import (ShardedCluster, "
+            "make_mesh); "
+            "sc = ShardedCluster(Config(n_nodes=16, seed=1), "
+            "make_mesh(2, device='cpu')); "
+            "assert int(sc.steps(sc.init(), 2).rnd) == 2; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'partisan_tpu' "
             "or m.startswith('partisan_tpu.')]; "
@@ -333,7 +342,10 @@ def test_entry_points_default_to_cuda():
             TCluster(cfg, model=TPlumtree())
         with pytest.raises(RuntimeError):
             state_io.state_from_numpy(())
-        for entry in (lambda: tsc.traffic_scenario("paxos", n=24),
+        from partisan_tpu_torch import parallel as tparallel
+        for entry in (lambda: tparallel.make_mesh(2),
+                      lambda: tsc.make_cluster_auto(cfg),
+                      lambda: tsc.traffic_scenario("paxos", n=24),
                       lambda: tsc.traffic_slo(0.1),
                       lambda: tsc.config7_soak(n=64, rounds=10),
                       lambda: tsc.config9_elastic(n=64)):

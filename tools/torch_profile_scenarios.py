@@ -113,8 +113,8 @@ def health_windows(n: int, top: int, tag: str) -> None:
 
     def snap():
         health.record_snapshot(cfg, cl.comm, st.health, rnd=st.rnd,
-                               nbrs=nbrs,
-                               alive=st.faults.alive, cov_ok=True,
+                               nbrs_local=nbrs,
+                               alive_global=st.faults.alive, cov_ok=True,
                                partition=st.faults.partition)
 
     print(json.dumps({"config": 3, "n": n,
